@@ -1,0 +1,422 @@
+"""Model composition: mechanics + coordinate actuators + DGF muscles.
+
+Counterpart of ``opensim_moco_tpu.models.model`` for the components the
+port carries today. State layout (system order) ``y = [q, u, z]`` with the
+auxiliary states ordered per muscle as [activation?, normalized tendon
+force?]; one control per coordinate actuator, then one excitation per
+muscle.
+
+Generalized forces from muscle paths come from ``torch.func.jvp`` /
+``torch.func.vjp`` of the path lengths (Jacobian-transpose mapping), as in
+the JAX package. Every per-muscle selection is static (Python indices), so
+no index tensor is built per call and no unused branch is evaluated.
+
+Contacts, springs, external loads, custom control forces, wrapping,
+conditional/moving path points, kinematic constraints and prescribed
+motion are not ported yet: adding one raises ``NotImplementedError``
+(ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..convert import params_from_numpy
+from . import muscle as dgf
+from .mech import MechModel, spd_solve
+from .spatial import mv
+
+
+def _unported(what):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
+                              "queue 1)")
+
+
+def _take(t, idx):
+    """``t[..., idx]`` for a static index list, without an index tensor."""
+    idx = [int(i) for i in idx]
+    if idx == list(range(t.shape[-1])):
+        return t
+    return torch.stack([t[..., i] for i in idx], -1)
+
+
+def _take_params(mp, idx):
+    return {k: _take(v, idx) for k, v in mp.items()}
+
+
+def _norm(v):
+    return torch.sqrt((v * v).sum(-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateActuatorSpec:
+    """tau = optimal_force * control at one coordinate (OpenSim
+    CoordinateActuator)."""
+    name: str
+    coord: int
+    optimal_force: float = 1.0
+    min_control: float = -np.inf
+    max_control: float = np.inf
+
+
+@dataclasses.dataclass(frozen=True)
+class MuscleSpec:
+    """DeGrooteFregly2016 muscle on a path of fixed points
+    ``("fixed", body, (x, y, z))``."""
+    name: str
+    path: tuple
+    ignore_activation_dynamics: bool = False
+    ignore_tendon_compliance: bool = False
+    tendon_dynamics_implicit: bool = False
+    ignore_passive_fiber_force: bool = False
+    min_control: float = 0.0
+    max_control: float = 1.0
+
+
+class Model:
+    """Mutable builder; call :meth:`finalize` before use in a Problem."""
+
+    def __init__(self, mech: MechModel):
+        self.mech = mech
+        self.actuators: list[CoordinateActuatorSpec] = []
+        self.muscles: list[MuscleSpec] = []
+        self._muscle_params: list[dict] = []
+        self.prescribed = False
+        self._finalized = False
+
+    # ------------------------------------------------------------- builders
+    def coord_index(self, coord_name: str) -> int:
+        return self.mech.coord_names.index(coord_name)
+
+    def add_coordinate_actuator(self, name, coord, optimal_force=1.0,
+                                min_control=-np.inf, max_control=np.inf):
+        ci = self.coord_index(coord) if isinstance(coord, str) else coord
+        self.actuators.append(CoordinateActuatorSpec(
+            name, ci, float(optimal_force), float(min_control),
+            float(max_control)))
+
+    def add_muscle(self, name, path, params=None,
+                   ignore_activation_dynamics=False,
+                   ignore_tendon_compliance=False,
+                   tendon_dynamics_implicit=False,
+                   ignore_passive_fiber_force=False,
+                   wraps=(), min_control=0.0, max_control=1.0):
+        if params is None:
+            params = dgf.default_muscle_params()
+        if wraps:
+            _unported("path wrapping")
+        norm_path = []
+        for pt in path:
+            if isinstance(pt[0], str):
+                if pt[0] != "fixed":
+                    _unported(f"{pt[0]!r} path points")
+                norm_path.append(("fixed", pt[1], tuple(pt[2])))
+            else:  # legacy (body, loc) pairs
+                norm_path.append(("fixed", pt[0], tuple(pt[1])))
+        self.muscles.append(MuscleSpec(
+            name, tuple(norm_path), ignore_activation_dynamics,
+            ignore_tendon_compliance, tendon_dynamics_implicit,
+            ignore_passive_fiber_force, float(min_control),
+            float(max_control)))
+        self._muscle_params.append(params)
+
+    def add_spring_generalized_force(self, *args, **kwargs):
+        _unported("SpringGeneralizedForce")
+
+    def add_station_contact(self, *args, **kwargs):
+        _unported("station contact")
+
+    def add_sphere_contact(self, *args, **kwargs):
+        _unported("sphere contact")
+
+    def add_external_force(self, *args, **kwargs):
+        _unported("external loads")
+
+    def add_custom_control_force(self, *args, **kwargs):
+        _unported("custom control forces")
+
+    def add_kinematic_constraint(self, *args, **kwargs):
+        _unported("kinematic constraints")
+
+    def set_position_motion(self, *args, **kwargs):
+        _unported("prescribed motion")
+
+    # ------------------------------------------------------------- layouts
+    def finalize(self):
+        self.nq = self.mech.nq
+        self._aux_index: list[tuple[str, str]] = []  # (muscle, kind)
+        for ms in self.muscles:
+            if not ms.ignore_activation_dynamics:
+                self._aux_index.append((ms.name, "activation"))
+            if not ms.ignore_tendon_compliance:
+                self._aux_index.append((ms.name, "normalized_tendon_force"))
+        self.naux = len(self._aux_index)
+        self.ny = 2 * self.nq + self.naux
+        self.nx = len(self.actuators) + len(self.muscles)
+        self._implicit_aux: list[str] = [
+            m.name for m in self.muscles
+            if (not m.ignore_tendon_compliance) and m.tendon_dynamics_implicit]
+        self.n_implicit_aux = len(self._implicit_aux)
+        self.nphi = 0
+        # static per-muscle index tables (the JAX package's ``_mv``)
+        nm = len(self.muscles)
+        aux_pos = {key: k for k, key in enumerate(self._aux_index)}
+        na = len(self.actuators)
+        self._mv = {
+            "act_from_z": np.zeros(nm, bool),
+            "act_zidx": np.zeros(nm, np.int32),
+            "exc_xidx": np.asarray([na + i for i in range(nm)], np.int32),
+            "ft_zidx": np.zeros(nm, np.int32),
+            "rigid": np.zeros(nm, bool),
+            "implicit": np.zeros(nm, bool),
+            "nopass": np.zeros(nm, bool),
+            "imp_didx": np.zeros(nm, np.int32),
+        }
+        for i, ms in enumerate(self.muscles):
+            if not ms.ignore_activation_dynamics:
+                self._mv["act_from_z"][i] = True
+                self._mv["act_zidx"][i] = aux_pos[(ms.name, "activation")]
+            if ms.ignore_tendon_compliance:
+                self._mv["rigid"][i] = True
+            else:
+                self._mv["ft_zidx"][i] = aux_pos[
+                    (ms.name, "normalized_tendon_force")]
+                if ms.tendon_dynamics_implicit:
+                    self._mv["implicit"][i] = True
+                    self._mv["imp_didx"][i] = \
+                        self._implicit_aux.index(ms.name)
+            self._mv["nopass"][i] = ms.ignore_passive_fiber_force
+        self._finalized = True
+        return self
+
+    # names --------------------------------------------------------------
+    def multiplier_names(self):
+        return []
+
+    def coordinate_paths(self):
+        """Moco-style absolute paths per coordinate, in coordinate order."""
+        return [f"/jointset/{j.label or j.name}/{j.coord_name}"
+                for j in self.mech.joints if j.kind != "weld"]
+
+    def state_names(self):
+        cpaths = self.coordinate_paths()
+        names = [f"{c}/value" for c in cpaths]
+        names += [f"{c}/speed" for c in cpaths]
+        return names + [f"/forceset/{m}/{kind}"
+                        for m, kind in self._aux_index]
+
+    def control_names(self):
+        return ([f"/forceset/{a.name}" for a in self.actuators] +
+                [f"/forceset/{m.name}" for m in self.muscles])
+
+    def default_control_bounds(self):
+        lo = [a.min_control for a in self.actuators] + \
+            [m.min_control for m in self.muscles]
+        hi = [a.max_control for a in self.actuators] + \
+            [m.max_control for m in self.muscles]
+        return np.array(lo), np.array(hi)
+
+    def default_state_bounds(self):
+        """(lo, hi) per state: speeds in [-50, 50], activations inherit
+        the excitation bounds, tendon forces in [0, 5]."""
+        lo = np.full(self.ny, -np.inf)
+        hi = np.full(self.ny, np.inf)
+        off = 2 * self.nq
+        lo[self.nq:2 * self.nq] = -50.0
+        hi[self.nq:2 * self.nq] = 50.0
+        mus_by_name = {ms.name: ms for ms in self.muscles}
+        for i, (m, kind) in enumerate(self._aux_index):
+            if kind == "activation":
+                ms = mus_by_name[m]
+                lo[off + i], hi[off + i] = ms.min_control, ms.max_control
+            else:
+                lo[off + i] = dgf.MIN_NORM_TENDON_FORCE
+                hi[off + i] = dgf.MAX_NORM_TENDON_FORCE
+        return lo, hi
+
+    # ------------------------------------------------------------- params
+    def numpy_params(self) -> dict:
+        """Parameter tree as numpy arrays, with the keys and shapes of the
+        JAX package's ``Model.default_params``."""
+        p = {"mech": self.mech.numpy_params()}
+        if self.muscles:
+            p["muscles"] = dgf.stack_muscle_params(self._muscle_params)
+        if self.actuators:
+            p["actuator_optimal_force"] = np.asarray(
+                [a.optimal_force for a in self.actuators])
+        return p
+
+    def default_params(self, device, dtype=torch.float64) -> dict:
+        """Parameter dict of tensors on ``device``."""
+        return params_from_numpy(self.numpy_params(), device, dtype)
+
+    # ------------------------------------------------------------ splitting
+    def split_state(self, y):
+        q = y[..., :self.nq]
+        u = y[..., self.nq:2 * self.nq]
+        z = y[..., 2 * self.nq:]
+        return q, u, z
+
+    def muscle_state(self, z, x, mi: int):
+        """(activation, norm_tendon_force_or_None) for muscle mi."""
+        name = self.muscles[mi].name
+        act = None
+        ft = None
+        for k, (mname, kind) in enumerate(self._aux_index):
+            if mname != name:
+                continue
+            if kind == "activation":
+                act = z[..., k]
+            else:
+                ft = z[..., k]
+        if act is None:  # activation dynamics ignored: activation = excitation
+            act = x[..., len(self.actuators) + mi]
+        return act, ft
+
+    # ------------------------------------------------------------- forces
+    def path_lengths(self, p, q):
+        """(..., n_muscles) lengths of the straight-segment paths."""
+        frames = self.mech.frames(p["mech"], q)
+        out = []
+        for ms in self.muscles:
+            pts = [self.mech._station_world(frames, body, loc, q)
+                   for _, body, loc in ms.path]
+            L = q.new_zeros(())
+            for a, b in zip(pts[:-1], pts[1:]):
+                L = L + _norm(b - a + 1e-30)
+            out.append(L)
+        return torch.stack(torch.broadcast_tensors(*out), -1)
+
+    def muscle_path_kinematics(self, p, q, u):
+        """lMT, vMT (..., nm) via jvp through the forward kinematics."""
+        return torch.func.jvp(lambda qq: self.path_lengths(p, qq), (q,),
+                              (u,))
+
+    def _muscle_vec_state(self, z, x):
+        """(excitation, activation, norm_tendon_force) (..., nm); the tendon
+        force of a rigid-tendon muscle is zero."""
+        mv_ = self._mv
+        exc = _take(x, mv_["exc_xidx"])
+        act = torch.stack([
+            z[..., mv_["act_zidx"][i]] if mv_["act_from_z"][i]
+            else exc[..., i] for i in range(len(self.muscles))], -1)
+        ft = torch.stack([
+            torch.zeros_like(exc[..., i]) if mv_["rigid"][i]
+            else z[..., mv_["ft_zidx"][i]]
+            for i in range(len(self.muscles))], -1)
+        return exc, act, ft
+
+    def _muscle_forces_vec(self, p, act, ft, lMT, vMT):
+        """Path tensions (..., nm): rigid-tendon closed form or the
+        tendon-force state, chosen per muscle."""
+        mp = p["muscles"]
+        rigid = np.nonzero(self._mv["rigid"])[0]
+        comp = np.nonzero(~self._mv["rigid"])[0]
+        cols = [None] * len(self.muscles)
+        if rigid.size:
+            f_r = dgf.rigid_tendon_force(
+                _take_params(mp, rigid), _take(act, rigid),
+                _take(lMT, rigid), _take(vMT, rigid),
+                self._mv["nopass"][rigid])
+            for k, i in enumerate(rigid):
+                cols[i] = f_r[..., k]
+        if comp.size:
+            f_c = dgf.tendon_force_from_state(_take_params(mp, comp),
+                                              _take(ft, comp))
+            for k, i in enumerate(comp):
+                cols[i] = f_c[..., k]
+        return torch.stack(torch.broadcast_tensors(*cols), -1)
+
+    def tau_controls(self, p, x):
+        """Generalized forces from coordinate actuators (linear in x)."""
+        cols = [torch.zeros_like(x[..., 0]) for _ in range(self.nq)]
+        gains = p.get("actuator_optimal_force")
+        for j, a in enumerate(self.actuators):
+            cols[a.coord] = cols[a.coord] + gains[j] * x[..., j]
+        return torch.stack(cols, -1)
+
+    def applied_generalized_forces(self, p, t, q, u, z, x):
+        """Total applied generalized force f_app(t, y, x, p): actuators plus
+        muscle tensions mapped through the path-length Jacobian."""
+        tau = self.tau_controls(p, x)
+        if not self.muscles:
+            return tau
+        path = lambda qq: self.path_lengths(p, qq)  # noqa: E731
+        L, Ldot = torch.func.jvp(path, (q,), (u,))
+        _, pullback = torch.func.vjp(path, q)
+        exc, act, ft = self._muscle_vec_state(z, x)
+        F_m = self._muscle_forces_vec(p, act, ft, L, Ldot)
+        # tension shortens the path
+        return tau + pullback(-F_m)[0]
+
+    # -------------------------------------------------------------- dynamics
+    def multibody_explicit(self, p, t, q, u, z, x, lam=None):
+        """udot = M^{-1} (f_app - bias)."""
+        tau = self.applied_generalized_forces(p, t, q, u, z, x)
+        M = self.mech.mass_matrix(p["mech"], q)
+        b = self.mech.bias_forces(p["mech"], q, u)
+        return spd_solve(M, tau - b)
+
+    def multibody_implicit_residual(self, p, t, q, u, z, x, lam, udot):
+        """M udot - (f_app - bias) (N m)."""
+        tau = self.applied_generalized_forces(p, t, q, u, z, x)
+        M = self.mech.mass_matrix(p["mech"], q)
+        b = self.mech.bias_forces(p["mech"], q, u)
+        return mv(M, udot) - (tau - b)
+
+    def aux_dynamics(self, p, t, q, u, z, x, implicit_aux_derivs=None,
+                     path_kin=None):
+        """zdot (..., naux). Implicit-tendon muscles take their derivative
+        from ``implicit_aux_derivs`` (the transcription's zeta variables);
+        ``path_kin=(lMT, vMT)`` skips the path-kinematics recompute."""
+        if self.naux == 0:
+            return q.new_zeros(q.shape[:-1] + (0,))
+        mv_ = self._mv
+        mp = p["muscles"]
+        exc, act, ft = self._muscle_vec_state(z, x)
+        cols = [None] * self.naux
+        act_m = np.nonzero(mv_["act_from_z"])[0]
+        if act_m.size:
+            dadt = dgf.activation_dynamics(
+                _take(exc, act_m), _take(act, act_m),
+                _take(mp["activation_time_constant"], act_m),
+                _take(mp["deactivation_time_constant"], act_m))
+            for k, i in enumerate(act_m):
+                cols[mv_["act_zidx"][i]] = dadt[..., k]
+        exp_m = np.nonzero(~mv_["rigid"] & ~mv_["implicit"])[0]
+        if exp_m.size:
+            lMT, vMT = (path_kin if path_kin is not None
+                        else self.muscle_path_kinematics(p, q, u))
+            dft_exp = dgf.explicit_tendon_dynamics(
+                _take_params(mp, exp_m), _take(act, exp_m),
+                _take(ft, exp_m), _take(lMT, exp_m), _take(vMT, exp_m),
+                mv_["nopass"][exp_m])
+            for k, i in enumerate(exp_m):
+                cols[mv_["ft_zidx"][i]] = dft_exp[..., k]
+        for i in np.nonzero(mv_["implicit"])[0]:
+            cols[mv_["ft_zidx"][i]] = (
+                implicit_aux_derivs[..., mv_["imp_didx"][i]]
+                if implicit_aux_derivs is not None
+                else torch.zeros_like(ft[..., i]))
+        return torch.stack(torch.broadcast_tensors(*cols), -1)
+
+    def implicit_aux_residuals(self, p, t, q, u, z, x, implicit_aux_derivs,
+                               path_kin=None):
+        """Equilibrium residuals of implicit-tendon muscles, normalized by
+        max isometric force."""
+        if not self._implicit_aux:
+            return q.new_zeros(q.shape[:-1] + (0,))
+        mv_ = self._mv
+        imp_m = np.nonzero(mv_["implicit"])[0]
+        mps = _take_params(p["muscles"], imp_m)
+        exc, act, ft = self._muscle_vec_state(z, x)
+        lMT, vMT = (path_kin if path_kin is not None
+                    else self.muscle_path_kinematics(p, q, u))
+        zeta = _take(implicit_aux_derivs, mv_["imp_didx"][imp_m])
+        r = dgf.implicit_tendon_residual(
+            mps, _take(act, imp_m), _take(ft, imp_m), zeta,
+            _take(lMT, imp_m), _take(vMT, imp_m), mv_["nopass"][imp_m])
+        return r / mps["max_isometric_force"]

@@ -1,0 +1,180 @@
+"""Goals on the port's main path.
+
+Counterparts of the goals in ``opensim_moco_tpu.ocp.goals``, same fields
+and semantics. A goal's ``integrand`` is evaluated on the whole grid at
+once: ``t`` is (..., G), ``y`` (..., G, ny), ``x`` (..., G, nx). ``value``
+combines endpoint tuples ``(t, y, x, lam, deriv)`` (leading dims only)
+with the quadrature of the integrand. A goal is a cost term or, in
+``"endpoint_constraint"`` mode, a set of constraint rows (``values``).
+
+The remaining goals of the JAX package are not ported yet (ROADMAP.md,
+queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+
+import numpy as np
+import torch
+
+from ..models import muscle as dgf
+
+
+@dataclasses.dataclass
+class Goal:
+    name: str = "goal"
+    weight: float = 1.0
+    mode: str = "cost"  # "cost" | "endpoint_constraint"
+    # bounds for endpoint-constraint mode (per output element)
+    constraint_bounds: tuple = (0.0, 0.0)
+    divide_by_duration: bool = False
+    # number of outputs in endpoint-constraint mode
+    num_outputs: int = 1
+
+    def integrand(self, rep, t, y, x, lam, p):
+        return torch.zeros_like(t)
+
+    def value(self, rep, initial, final, integral, p):
+        """Default: the integral itself (over the duration if
+        ``divide_by_duration``)."""
+        val = integral
+        if self.divide_by_duration:
+            val = val / (final[0] - initial[0])
+        return val
+
+
+@dataclasses.dataclass
+class ControlGoal(Goal):
+    """Sum_i w_i |x_i|^p integrated over time (MocoControlGoal). Weights by
+    control name or regex pattern."""
+    name: str = "control_effort"
+    exponent: int = 2
+    control_weights: dict = dataclasses.field(default_factory=dict)
+    pattern_weights: dict = dataclasses.field(default_factory=dict)
+    divide_by_displacement: bool = False
+
+    def __post_init__(self):
+        if self.divide_by_displacement:
+            raise NotImplementedError("ControlGoal.divide_by_displacement is "
+                                      "not ported yet (ROADMAP.md, queue 1)")
+
+    def _weights(self, control_names):
+        w = np.ones(len(control_names))
+        for pat, pw in self.pattern_weights.items():
+            for i, cn in enumerate(control_names):
+                if re.fullmatch(pat, cn):
+                    w[i] = pw
+        for cn, cw in self.control_weights.items():
+            w[control_names.index(cn)] = cw
+        return w
+
+    def integrand(self, rep, t, y, x, lam, p):
+        w = self._weights(rep.control_names)
+        terms = x * x if self.exponent == 2 else x.abs() ** self.exponent
+        if np.all(w == 1.0):
+            return terms.sum(-1)
+        return sum(float(wi) * terms[..., i] for i, wi in enumerate(w))
+
+
+@dataclasses.dataclass
+class FinalTimeGoal(Goal):
+    """Minimize the final time (MocoFinalTimeGoal)."""
+    name: str = "final_time"
+
+    def value(self, rep, initial, final, integral, p):
+        return final[0]
+
+
+@dataclasses.dataclass
+class InitialActivationGoal(Goal):
+    """sum_i (excitation_i(t0) - activation_i(t0))^2
+    (MocoInitialActivationGoal)."""
+    name: str = "initial_activation"
+
+    def value(self, rep, initial, final, integral, p):
+        y0 = initial[1]
+        x0 = initial[2]
+        total = torch.zeros_like(y0[..., 0])
+        m = rep.model
+        aux0 = 2 * m.nq
+        mus_idx = {ms.name: mi for mi, ms in enumerate(m.muscles)}
+        for k, (mname, kind) in enumerate(m._aux_index):
+            if kind == "activation":
+                exc = x0[..., len(m.actuators) + mus_idx[mname]]
+                total = total + (exc - y0[..., aux0 + k]) ** 2
+        return total
+
+
+class _InitialMuscleEquilibrium(Goal):
+    """Shared plumbing of the two initial-equilibrium goals: one residual
+    per compliant-tendon muscle, stacked on the last dim."""
+
+    def auto_outputs(self, rep):
+        return sum(1 for m in rep.model.muscles
+                   if not m.ignore_tendon_compliance)
+
+    def _residual(self, m, mi, mp, act, ft, lMT, vMT, d0):
+        raise NotImplementedError
+
+    def _residuals(self, rep, initial, p):
+        m = rep.model
+        y0, x0 = initial[1], initial[2]
+        d0 = initial[4] if len(initial) > 4 else None
+        q, u, z = m.split_state(y0)
+        lMT, vMT = m.muscle_path_kinematics(p, q, u)
+        res = []
+        for mi, mspec in enumerate(m.muscles):
+            if mspec.ignore_tendon_compliance:
+                continue
+            mp = {k: v[mi] for k, v in p["muscles"].items()}
+            act, ft = m.muscle_state(z, x0, mi)
+            r = self._residual(m, mi, mp, act, ft, lMT[..., mi],
+                               vMT[..., mi], d0)
+            res.append(r / mp["max_isometric_force"])
+        if not res:
+            return y0.new_zeros(y0.shape[:-1] + (0,))
+        return torch.stack(res, -1)
+
+    def values(self, rep, initial, final, p):
+        return self._residuals(rep, initial, p)
+
+    def value(self, rep, initial, final, integral, p):
+        r = self._residuals(rep, initial, p)
+        return (r * r).sum(-1)
+
+
+@dataclasses.dataclass
+class InitialVelocityEquilibriumDGFGoal(_InitialMuscleEquilibrium):
+    """Velocity-level DGF muscle-tendon equilibrium at the initial time
+    (MocoInitialVelocityEquilibriumDGFGoal): per compliant-tendon muscle,
+    the derivative of the linearized equilibrium residual. Reads the
+    initial tendon-force derivative variables for implicit tendons."""
+    name: str = "initial_velocity_equilibrium"
+    mode: str = "endpoint_constraint"
+
+    def _residual(self, m, mi, mp, act, ft, lMT, vMT, d0):
+        mspec = m.muscles[mi]
+        dft = torch.zeros_like(ft)
+        if mspec.tendon_dynamics_implicit and d0 is not None \
+                and d0.shape[-1]:
+            # derivative block layout [udot (implicit mb) | zeta]: zeta
+            # always occupies the tail
+            didx = int(m._mv["imp_didx"][mi])
+            dft = d0[..., d0.shape[-1] - m.n_implicit_aux + didx]
+        return dgf.linearized_equilibrium_residual_derivative(
+            mp, act, ft, dft, lMT, vMT,
+            mspec.ignore_passive_fiber_force or None)
+
+
+@dataclasses.dataclass
+class InitialForceEquilibriumGoal(_InitialMuscleEquilibrium):
+    """Muscle-tendon force equilibrium at the initial time for
+    compliant-tendon muscles (MocoInitialForceEquilibriumGoal)."""
+    name: str = "initial_force_equilibrium"
+
+    def _residual(self, m, mi, mp, act, ft, lMT, vMT, d0):
+        return dgf.implicit_tendon_residual(
+            mp, act, ft, 0.0, lMT, vMT,
+            m.muscles[mi].ignore_passive_fiber_force or None)

@@ -1,0 +1,131 @@
+"""Problem specification and its compiled representation.
+
+Counterpart of ``opensim_moco_tpu.ocp.problem`` (MocoProblem /
+MocoProblemRep): name -> index resolution and bounds in system order, all
+host-side numpy. Path constraints and optimizable parameters are not
+ported yet (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..models.model import Model
+from .goals import Goal
+
+
+def _as_bounds(b):
+    """Accept scalar (equality), (lo, hi) tuple, or None (unbounded)."""
+    if b is None:
+        return (-np.inf, np.inf)
+    if np.isscalar(b):
+        return (float(b), float(b))
+    lo, hi = b
+    return (float(lo), float(hi))
+
+
+@dataclasses.dataclass
+class VariableInfo:
+    """Phase/initial/final bounds for one continuous variable."""
+    bounds: tuple = (-np.inf, np.inf)
+    initial: tuple | None = None
+    final: tuple | None = None
+
+
+def _info(bounds, initial, final):
+    return VariableInfo(_as_bounds(bounds),
+                        None if initial is None else _as_bounds(initial),
+                        None if final is None else _as_bounds(final))
+
+
+class Problem:
+    """User-facing problem builder (MocoProblem analogue)."""
+
+    def __init__(self, model: Model | None = None):
+        self.model = model
+        self.time_initial = (0.0, 0.0)
+        self.time_final = (1.0, 1.0)
+        self.state_infos: dict[str, VariableInfo] = {}
+        self.control_infos: dict[str, VariableInfo] = {}
+        self.goals: list[Goal] = []
+        self.multiplier_bounds = (-1000.0, 1000.0)
+
+    def set_time_bounds(self, initial, final):
+        self.time_initial = _as_bounds(initial)
+        self.time_final = _as_bounds(final)
+
+    def set_state_info(self, name, bounds=None, initial=None, final=None):
+        self.state_infos[name] = _info(bounds, initial, final)
+
+    def set_control_info(self, name, bounds=None, initial=None, final=None):
+        self.control_infos[name] = _info(bounds, initial, final)
+
+    def add_goal(self, goal: Goal):
+        self.goals.append(goal)
+        return goal
+
+    def add_path_constraint(self, *args, **kwargs):
+        raise NotImplementedError("path constraints are not ported yet "
+                                  "(ROADMAP.md, queue 1)")
+
+    def add_parameter(self, *args, **kwargs):
+        raise NotImplementedError("optimizable parameters are not ported yet "
+                                  "(ROADMAP.md, queue 1)")
+
+    def create_rep(self) -> "ProblemRep":
+        return ProblemRep(self)
+
+
+class ProblemRep:
+    """Compiled problem: bounds in system order + goals."""
+
+    def __init__(self, problem: Problem):
+        if problem.model is None:
+            raise ValueError("Problem has no model")
+        if not problem.model._finalized:
+            problem.model.finalize()
+        self.problem = problem
+        self.model = problem.model
+        self.state_names = self.model.state_names()
+        self.control_names = self.model.control_names()
+        self.ny = len(self.state_names)
+        self.nx = len(self.control_names)
+        self.nlam = self.model.nphi
+        self.goals = problem.goals
+        self.path_constraints = []
+        self.parameters = []
+        self.np = 0
+
+        dlo, dhi = self.model.default_state_bounds()
+        self.y_lo, self.y_hi = dlo.copy(), dhi.copy()
+        self.y0_lo, self.y0_hi = dlo.copy(), dhi.copy()
+        self.yf_lo, self.yf_hi = dlo.copy(), dhi.copy()
+
+        for i, name in enumerate(self.state_names):
+            info = problem.state_infos.get(name)
+            if info is None:
+                continue
+            self.y_lo[i], self.y_hi[i] = info.bounds
+            self.y0_lo[i], self.y0_hi[i] = info.initial or info.bounds
+            self.yf_lo[i], self.yf_hi[i] = info.final or info.bounds
+
+        clo, chi = self.model.default_control_bounds()
+        self.x_lo, self.x_hi = clo.copy(), chi.copy()
+        self.x0_lo, self.x0_hi = clo.copy(), chi.copy()
+        self.xf_lo, self.xf_hi = clo.copy(), chi.copy()
+        for i, name in enumerate(self.control_names):
+            info = problem.control_infos.get(name)
+            if info is None:
+                continue
+            self.x_lo[i], self.x_hi[i] = info.bounds
+            self.x0_lo[i], self.x0_hi[i] = info.initial or info.bounds
+            self.xf_lo[i], self.xf_hi[i] = info.final or info.bounds
+
+        self.t0_bounds = problem.time_initial
+        self.tf_bounds = problem.time_final
+        self.lam_bounds = problem.multiplier_bounds
+        self.param_lo = np.zeros(0)
+        self.param_hi = np.zeros(0)
+        self.param_init = np.zeros(0)

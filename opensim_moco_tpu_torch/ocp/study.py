@@ -1,0 +1,98 @@
+"""Study: problem + solver facade (MocoStudy analogue).
+
+Counterpart of ``opensim_moco_tpu.ocp.study.Study`` on its non-chunked
+path: ``solve`` transcribes the problem, builds the solver on an explicit
+device, scales the NLP at the initial guess, runs one lane and expands the
+flat solution into a :class:`Solution` of numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from ..solver.ipm import IPMOptions, make_solver
+from ..transcribe.transcription import SolverOptions, Transcription
+from .problem import Problem
+
+
+@dataclasses.dataclass
+class Solution:
+    """Solver output on the transcription grid (MocoSolution analogue)."""
+    time: np.ndarray
+    state_names: list
+    states: np.ndarray  # (G, ny)
+    control_names: list
+    controls: np.ndarray  # (G, nx)
+    success: bool
+    status: str
+    objective: float
+    num_iterations: int
+    kkt_error: float
+    solver_duration: float
+    raw_iterate: np.ndarray
+
+    @property
+    def initial_time(self):
+        return float(self.time[0])
+
+    @property
+    def final_time(self):
+        return float(self.time[-1])
+
+    def state(self, name):
+        return self.states[:, self.state_names.index(name)]
+
+    def control(self, name):
+        return self.controls[:, self.control_names.index(name)]
+
+
+class Study:
+    def __init__(self, problem: Problem | None = None):
+        self.problem = problem if problem is not None else Problem()
+        self.solver_options = SolverOptions()
+        self.ipm_options = IPMOptions(tol=1e-6, max_iter=1000)
+
+    def set_solver_options(self, **kwargs):
+        self.solver_options = dataclasses.replace(self.solver_options,
+                                                  **kwargs)
+
+    def set_ipm_options(self, **kwargs):
+        self.ipm_options = dataclasses.replace(self.ipm_options, **kwargs)
+
+    def transcription(self) -> Transcription:
+        return Transcription(self.problem.create_rep(), self.solver_options)
+
+    def solve(self, device, dtype=torch.float64, guess=None) -> Solution:
+        """Solve from ``guess`` (flat numpy iterate; default: the
+        bounds-midpoint guess) on ``device``."""
+        dev = resolve_device(device)
+        tr = self.transcription()
+        z0 = tr.initial_guess() if guess is None else np.asarray(guess)
+        start = time.perf_counter()
+        solve = make_solver(tr.make_nlp(dev, dtype), self.ipm_options,
+                            scale_z0=z0, device=dev, dtype=dtype)
+        res = solve(z0[None])
+        z, f, kkt, it, conv = (t[0].cpu().numpy() for t in
+                               (res.z, res.f, res.kkt_error, res.iterations,
+                                res.converged))
+        duration = time.perf_counter() - start
+        t0, tf = z[0], z[1]
+        o = tr.offsets
+        converged = bool(conv)
+        return Solution(
+            time=t0 + (tf - t0) * np.asarray(tr.taus),
+            state_names=list(tr.rep.state_names),
+            states=z[o["states"][0]:o["states"][1]].reshape(tr.G, tr.ny),
+            control_names=list(tr.rep.control_names),
+            controls=z[o["controls"][0]:o["controls"][1]].reshape(tr.G,
+                                                                  tr.nx),
+            success=converged,
+            status=("converged" if converged
+                    else f"max iterations or stall (kkt={float(kkt):.2e})"),
+            objective=float(f), num_iterations=int(it),
+            kkt_error=float(kkt), solver_duration=duration, raw_iterate=z)
