@@ -4,25 +4,43 @@ The main path is a batched interior-point solve of the hanging-muscle
 minimum-time problem (a DeGrooteFregly2016 muscle lifting a 0.5 kg mass)
 through ``opensim_moco_tpu_torch.parallel.make_batched_solver``, in
 float64, at the bench configuration: Hermite-Simpson at 25 mesh
-intervals, 32 jittered starts, the bench's IPM options with the dense KKT.
+intervals, 32 jittered starts, the bench's IPM options.
 
 Phases, one report line each:
 
-1. device: the card's name and power limit; no card, no run;
-2. full-dynamics lane (activation + implicit tendon compliance), B=32 on
-   the card: converged, strict, mean/max iterations, wall seconds;
-3. card against CPU, iterate level: ``init_fn`` and 3 ``body_fn`` steps on
-   both devices for the same 32 lanes; z, nu, wL and wU agree per lane to
-   1e-6 of their magnitude, mu and the iteration counters exactly;
-4. card against CPU, solve level: lanes 0-3 solved to the end on the CPU;
-   every lane that converges there converges on the card, with the
-   objective within relative 1e-2;
-5. simplified lane (rigid tendon, no activation dynamics), B=32 on the
-   card.
+1. device: the card's name and power limit; no card, no run. Then the
+   hand-written kernels are built from ``opensim_moco_tpu_torch/csrc``;
+2. full-dynamics lane (activation + implicit tendon compliance),
+   ``kkt="dense"``, B=8 (the first 8 of the 32 starts, so that the whole
+   script stays near 10 minutes): converged, strict, mean/max iterations,
+   wall seconds;
+3. card against CPU, iterate level, ``kkt="dense"``: ``init_fn`` and 3
+   ``body_fn`` steps on both devices for the same 32 lanes; z, nu, wL and
+   wU agree per lane to 1e-6 of their magnitude, mu and the iteration
+   counters exactly;
+4. card against CPU, solve level (lanes 0-3, ``kkt="dense"``): every lane
+   that converges on the CPU converges on the card, objectives within
+   relative 1e-2;
+5. simplified lane (rigid tendon, no activation dynamics), B=8,
+   ``kkt="dense"``;
+6. full-dynamics lane under ``kkt="auto"`` (the JAX bench's own mode:
+   compressed derivatives, dense LU below n+m = 1200, the least-squares
+   multiplier start through K1), B=32, with K1's launch counts;
+7. full-dynamics lane under ``kkt="structured"`` (every KKT factor and
+   solve through K1), B=32, with K1's launch counts; every lane of phase
+   2 that converges under both ``"dense"`` and ``"structured"`` has
+   objectives within relative 1e-2;
+8. K1 against its plain PyTorch version on the card, with times: (a) the
+   KKT blocks the structured lane factors in its first iteration (B=32,
+   N=25, nb=34, k=1), factor then a 3-column solve; (b) random
+   well-conditioned blocks, B=8, N=16, nb=200, k=4; (c) a lane with a
+   singular block gives non-finite output and no exception;
+9. card against CPU, iterate level, under ``kkt="structured"``.
 
-The port has no hand-written kernel yet, so the kernel list is empty.
-The last line of standard output is the result object. Run from the root
-of the repository::
+The line before the last lists each kernel with its launches on the main
+path, its error against the plain version, and its times beside its
+bound. The last line of standard output is the result object. Run from
+the root of the repository::
 
     python3 chip_smoke.py [--out results.json]
 """
@@ -35,6 +53,11 @@ import sys
 import time
 
 import numpy as np
+
+FP64_FLOPS = 67e12  # H100 SXM, FP64 tensor core, NVIDIA data sheet
+HBM_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+ITERATE_RTOL = 1e-6
+KERNEL_RTOL = 1e-10
 
 
 def _fail(msg):
@@ -62,8 +85,10 @@ def _batch_stats(res, tol, dt):
             "wall_s": dt, "solves_per_s": B / dt}
 
 
-def _solve_lane(torch, tr, opts, z0, Z0, dev):
-    """Warm up on two lanes for two iterations, then time the batch."""
+def _solve_lane(torch, tr, opts, z0, Z0, dev, launches=None):
+    """Warm up on two lanes for two iterations, then time the batch. With
+    ``launches`` (the kernels' count dict), the counts are set to 0 just
+    before the timed batch and read just after it."""
     from opensim_moco_tpu_torch.parallel import make_batched_solver
 
     warm = make_batched_solver(tr, dataclasses.replace(opts, max_iter=2),
@@ -71,70 +96,39 @@ def _solve_lane(torch, tr, opts, z0, Z0, dev):
     warm(Z0[:2])
     solve = make_batched_solver(tr, opts, dev, scale_z0=z0)
     torch.cuda.synchronize()
+    if launches is not None:
+        for name in launches:
+            launches[name] = 0
     t0 = time.perf_counter()
     res = solve(Z0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    stats = _batch_stats(res, opts.tol, dt)
+    if launches is not None:
+        stats["launches"] = dict(launches)
     for name, v in res._asdict().items():
         if v.device.type != "cuda":
             _fail(f"result field {name} is on {v.device}, not cuda")
-    return res, _batch_stats(res, opts.tol, dt)
+    if not np.isfinite(res.z.cpu().numpy()).all():
+        _fail("non-finite solution on the card")
+    return res, stats
 
 
 def _lane_rel_err(a, b):
     """max over lanes of max|a - b| / max|b| (lane by lane)."""
-    a = a.cpu().numpy()
-    b = b.cpu().numpy()
+    a = a.cpu().numpy().reshape(len(a), -1)
+    b = b.cpu().numpy().reshape(len(b), -1)
     if b.shape[-1] == 0:
         return 0.0
     scale = np.maximum(np.abs(b).max(-1), 1e-300)
     return float((np.abs(a - b).max(-1) / scale).max())
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", help="also write the phase results to this "
-                    "JSON file")
-    args = ap.parse_args()
-
-    import torch
-
-    # ---- phase 1: device
-    if not torch.cuda.is_available():
-        _fail("torch.cuda.is_available() is False: this check needs a CUDA "
-              "card and has no CPU fallback")
+def _iterate_parity(torch, tr, opts, z0, Z0):
+    """init_fn + 3 body_fn steps on the card and on the CPU."""
     from opensim_moco_tpu_torch.config import full_precision
-    from opensim_moco_tpu_torch.examples import hanging_muscle_study
-    from opensim_moco_tpu_torch.parallel import (batch_guesses,
-                                                 make_batched_solver)
-    from opensim_moco_tpu_torch.solver.ipm import IPMOptions, make_kernel
+    from opensim_moco_tpu_torch.solver.ipm import make_kernel
 
-    card = _card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(card)
-    print(f"phase 1 device: {kind} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}",
-          flush=True)
-    dev = torch.device("cuda")
-    out = {"card": card, "kind": kind, "torch": torch.__version__}
-
-    bench = dict(tol=3e-3, bound_relax=1e-6, mu_init=1e-2, kappa_eps=100.0,
-                 acceptable_tol_factor=30.0, acceptable_iter=10,
-                 max_rescues=100, kkt="dense")
-
-    # ---- phase 2: full-dynamics lane on the card
-    tr = hanging_muscle_study(25, ignore_tendon_compliance=False,
-                              ignore_activation_dynamics=False,
-                              tendon_dynamics_implicit=True).transcription()
-    opts = IPMOptions(max_iter=200, **bench)
-    z0 = tr.initial_guess()
-    Z0 = batch_guesses(tr, 32, scale=0.05, seed=0)
-    res, stats = _solve_lane(torch, tr, opts, z0, Z0, dev)
-    print("phase 2 full dynamics (mesh 25, B=32, f64, cuda): "
-          + json.dumps(stats), flush=True)
-    out["full_dynamics"] = stats
-
-    # ---- phase 3: card against CPU, iterate level
     carries = {}
     for name in ("cuda", "cpu"):
         init_fn, body_fn, _, _ = make_kernel(tr.make_nlp(name), opts,
@@ -150,60 +144,379 @@ def main():
     same = {k: bool(torch.equal(getattr(carries["cuda"], k).cpu(),
                                 getattr(carries["cpu"], k)))
             for k in ("mu", "it")}
-    print("phase 3 iterate parity cuda vs cpu after 3 steps: max lane "
-          f"rel err {json.dumps(errs)}, exact {json.dumps(same)}",
+    return {"max_lane_rel_err": errs, "exact": same}
+
+
+def _events_ms(torch, fn, reps):
+    """Mean device ms of ``fn()`` over ``reps`` calls, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _dense_kkt(torch, D, L, Bm, C):
+    """The bordered block-tridiagonal matrix assembled dense, per lane."""
+    Bt, N, nb, _ = D.shape
+    k = Bm.shape[-1]
+    K = D.new_zeros((Bt, N * nb + k, N * nb + k))
+    for i in range(N):
+        s = slice(i * nb, (i + 1) * nb)
+        K[:, s, s] = D[:, i]
+        if i + 1 < N:
+            t = slice((i + 1) * nb, (i + 2) * nb)
+            K[:, t, s] = L[:, i]
+            K[:, s, t] = L[:, i].transpose(-1, -2)
+    K[:, :N * nb, N * nb:] = Bm.reshape(Bt, N * nb, k)
+    K[:, N * nb:, :N * nb] = Bm.reshape(Bt, N * nb, k).transpose(-1, -2)
+    K[:, N * nb:, N * nb:] = C
+    return K
+
+
+def _btb_work(Bt, N, nb, k, r):
+    """(factor flops, factor bytes, solve flops, solve bytes) that one
+    factor and one r-column solve need at these shapes (f64 values, int32
+    pivots; each input read once, each output written once)."""
+    blk = N * nb * nb
+    f_flops = Bt * (N * (2 / 3 + 2 + 2) * nb ** 3 + 8 * N * nb * nb * k +
+                    2 * N * nb * k * k + 2 / 3 * k ** 3)
+    f_bytes = Bt * (8 * (2 * blk - nb * nb + 2 * N * nb * k + 2 * k * k) +
+                    4 * (N * nb + k))
+    s_flops = Bt * (8 * N * nb * nb * r + 4 * N * nb * k * r +
+                    2 * k * k * r)
+    s_bytes = Bt * (8 * (2 * blk - nb * nb + 2 * N * nb * k + k * k +
+                         2 * (N * nb + k) * r) + 4 * (N * nb + k))
+    return f_flops, f_bytes, s_flops, s_bytes
+
+
+def _bound(flops, nbytes):
+    t_ops, t_bytes = flops / FP64_FLOPS, nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                        else "bytes")
+
+
+def _check_btb(torch, D, L, Bm, C, r, seed, reps):
+    """K1 against the plain version on one set of blocks: factor, then an
+    r-column solve; errors, KKT residuals and times."""
+    from opensim_moco_tpu_torch.ops import btb as k1
+    from opensim_moco_tpu_torch.solver import structured as plain
+
+    Bt, N, nb, _ = D.shape
+    k = Bm.shape[-1]
+    rng = np.random.default_rng(seed)
+    rhs_T = torch.as_tensor(rng.standard_normal((Bt, N, nb, r)),
+                            device=D.device)
+    rhs_C = torch.as_tensor(rng.standard_normal((Bt, k, r)), device=D.device)
+    fk = k1.btb_factor(D, L, Bm, C)
+    xk, wk = k1.btb_solve(fk, rhs_T, rhs_C)
+    fp = plain.btb_factor(D, L, Bm, C)
+    xp, wp = plain.btb_solve(fp, rhs_T, rhs_C)
+    torch.cuda.synchronize()
+    sol_k = torch.cat([xk.reshape(Bt, -1, r), wk], 1)
+    sol_p = torch.cat([xp.reshape(Bt, -1, r), wp], 1)
+    K = _dense_kkt(torch, D, L, Bm, C)
+    rhs = torch.cat([rhs_T.reshape(Bt, -1, r), rhs_C], 1)
+
+    def backward_err(sol):
+        res = (K @ sol - rhs).abs().amax((1, 2))
+        scale = K.abs().amax((1, 2)) * sol.abs().amax((1, 2))
+        return float((res / torch.clamp(scale, min=1.0)).max())
+
+    out = {"shape": {"B": Bt, "N": N, "nb": nb, "k": k, "r": r},
+           "max_abs_err": float((sol_k - sol_p).abs().max()),
+           "max_lane_rel_err": _lane_rel_err(sol_k, sol_p),
+           "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu),
+           "backward_err_kernel": backward_err(sol_k),
+           "backward_err_plain": backward_err(sol_p),
+           "finite": bool(torch.isfinite(sol_k).all())}
+    out["factor_ms"] = _events_ms(
+        torch, lambda: k1.btb_factor(D, L, Bm, C), reps)
+    out["solve_ms"] = _events_ms(
+        torch, lambda: k1.btb_solve(fk, rhs_T, rhs_C), reps)
+    out["plain_factor_ms"] = _events_ms(
+        torch, lambda: plain.btb_factor(D, L, Bm, C), max(1, reps // 10))
+    out["plain_solve_ms"] = _events_ms(
+        torch, lambda: plain.btb_solve(fp, rhs_T, rhs_C), max(1, reps // 10))
+    lu = [None]
+
+    def lib_factor():
+        lu[0] = torch.linalg.lu_factor_ex(K)
+
+    out["library_factor_ms"] = _events_ms(torch, lib_factor,
+                                          max(1, reps // 10))
+    out["library_solve_ms"] = _events_ms(
+        torch, lambda: torch.linalg.lu_solve(lu[0][0], lu[0][1], rhs),
+        max(1, reps // 10))
+    f_flops, f_bytes, s_flops, s_bytes = _btb_work(Bt, N, nb, k, r)
+    out["factor_bound_ms"], out["factor_bound_by"] = _bound(f_flops, f_bytes)
+    out["solve_bound_ms"], out["solve_bound_by"] = _bound(s_flops, s_bytes)
+    return out
+
+
+def _capture_first_newton_blocks(torch, tr, opts, z0, Z0):
+    """(D, L, B, C) of the first Newton-step factor of a structured solve
+    at the starting points: one init_fn and one body_fn, with K1's factor
+    wrapped to record its arguments."""
+    from opensim_moco_tpu_torch.config import full_precision
+    from opensim_moco_tpu_torch.ops import btb as k1
+    from opensim_moco_tpu_torch.solver.ipm import make_kernel
+
+    seen = []
+    real = k1.btb_factor
+
+    def record(*blocks):
+        seen.append([b.clone() for b in blocks])
+        return real(*blocks)
+
+    k1.btb_factor = record
+    try:
+        init_fn, body_fn, _, _ = make_kernel(
+            tr.make_nlp("cuda"), opts, scale_z0=z0, device="cuda")
+        with full_precision("cuda"):
+            body_fn(init_fn(Z0))
+    finally:
+        k1.btb_factor = real
+    return seen[1]  # seen[0] is the least-squares multiplier start
+
+
+def _random_blocks(torch, Bt, N, nb, k, seed):
+    """Well-conditioned random blocks: diagonally dominant D and C."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, device="cuda")
+
+    D = rng.standard_normal((Bt, N, nb, nb))
+    D = D + np.swapaxes(D, -1, -2) + 4 * nb * np.eye(nb)
+    L = 0.5 * rng.standard_normal((Bt, N - 1, nb, nb))
+    Bm = 0.5 * rng.standard_normal((Bt, N, nb, k))
+    C = rng.standard_normal((Bt, k, k)) + 4 * N * nb * np.eye(k)
+    return t(D), t(L), t(Bm), t(C)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the phase results to this "
+                    "JSON file")
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9",
+                    help="comma-separated phases to run (default: all)")
+    args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
+
+    import torch
+
+    # ---- phase 1: device, kernel build
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this check needs a CUDA "
+              "card and has no CPU fallback")
+    from opensim_moco_tpu_torch.examples import hanging_muscle_study
+    from opensim_moco_tpu_torch.ops import _build
+    from opensim_moco_tpu_torch.ops.btb import LAUNCHES
+    from opensim_moco_tpu_torch.parallel import batch_guesses
+    from opensim_moco_tpu_torch.solver.ipm import IPMOptions
+
+    card = _card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(card)
+    print(f"phase 1 device: {kind} | torch {torch.__version__} "
+          f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}",
           flush=True)
-    out["iterate_parity"] = {"max_lane_rel_err": errs, "exact": same}
-    if max(errs.values()) > 1e-6 or not all(same.values()):
-        _fail("phase 3: card and CPU iterates disagree")
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    print(f"phase 1 kernels built in {time.perf_counter() - t0:.3f} s: "
+          + json.dumps({name: [ln for ln in rep.splitlines()
+                               if "registers" in ln or "spill" in ln]
+                        for name, rep in reports.items()}), flush=True)
+    dev = torch.device("cuda")
+    out = {"card": card, "kind": kind, "torch": torch.__version__}
+
+    bench = dict(tol=3e-3, bound_relax=1e-6, mu_init=1e-2, kappa_eps=100.0,
+                 acceptable_tol_factor=30.0, acceptable_iter=10,
+                 max_rescues=100)
+    tr = hanging_muscle_study(25, ignore_tendon_compliance=False,
+                              ignore_activation_dynamics=False,
+                              tendon_dynamics_implicit=True).transcription()
+    opts = IPMOptions(max_iter=200, kkt="dense", **bench)
+    opts_st = dataclasses.replace(opts, kkt="structured")
+    z0 = tr.initial_guess()
+    Z0 = batch_guesses(tr, 32, scale=0.05, seed=0)
+    res = None
+
+    # ---- phase 2: full-dynamics lane, dense KKT
+    if 2 in phases:
+        res, stats = _solve_lane(torch, tr, opts, z0, Z0[:8], dev)
+        print("phase 2 full dynamics, kkt=dense (mesh 25, B=8, f64, cuda): "
+              + json.dumps(stats), flush=True)
+        out["full_dynamics_dense"] = stats
+        if stats["converged"] == 0:
+            _fail("phase 2: no lane converged")
+
+    # ---- phase 3: card against CPU, iterate level
+    if 3 in phases:
+        par = _iterate_parity(torch, tr, opts, z0, Z0)
+        print("phase 3 iterate parity cuda vs cpu after 3 steps, kkt=dense: "
+              + json.dumps(par), flush=True)
+        out["iterate_parity_dense"] = par
+        if max(par["max_lane_rel_err"].values()) > ITERATE_RTOL or \
+                not all(par["exact"].values()):
+            _fail("phase 3: card and CPU iterates disagree")
 
     # ---- phase 4: card against CPU, solve level (lanes 0-3)
-    t0 = time.perf_counter()
-    cpu_res = make_batched_solver(tr, opts, "cpu", scale_z0=z0)(Z0[:4])
-    cpu_s = time.perf_counter() - t0
-    conv_cpu = cpu_res.converged.numpy()
-    conv_gpu = res.converged[:4].cpu().numpy()
-    f_cpu = cpu_res.f.numpy()
-    f_gpu = res.f[:4].cpu().numpy()
-    rel = np.abs(f_gpu - f_cpu) / np.abs(f_cpu)
-    lanes = {"converged_cpu": conv_cpu.tolist(),
-             "converged_cuda": conv_gpu.tolist(),
-             "iterations_cpu": cpu_res.iterations.tolist(),
-             "iterations_cuda": res.iterations[:4].tolist(),
-             "f_cpu": f_cpu.tolist(), "f_cuda": f_gpu.tolist(),
-             "cpu_wall_s": cpu_s}
-    print("phase 4 solve parity lanes 0-3: " + json.dumps(lanes), flush=True)
-    out["solve_parity"] = lanes
-    if not conv_cpu.any():
-        _fail("phase 4: no lane converged on the CPU")
-    if (conv_cpu & ~conv_gpu).any():
-        _fail("phase 4: a lane converged on the CPU but not on the card")
-    if (rel[conv_cpu] > 1e-2).any():
-        _fail(f"phase 4: objectives differ by {rel.max():.3e} (> 1e-2)")
-    if not np.isfinite(res.z.cpu().numpy()).all():
-        _fail("phase 4: non-finite solution on the card")
+    if 4 in phases and res is not None:
+        from opensim_moco_tpu_torch.parallel import make_batched_solver
 
-    # ---- phase 5: simplified lane on the card
-    tr_s = hanging_muscle_study(25, ignore_tendon_compliance=True,
-                                ignore_activation_dynamics=True,
-                                tendon_dynamics_implicit=False
-                                ).transcription()
-    opts_s = IPMOptions(max_iter=150, **bench)
-    Z0_s = batch_guesses(tr_s, 32, scale=0.05, seed=0)
-    res_s, stats_s = _solve_lane(torch, tr_s, opts_s, tr_s.initial_guess(),
+        t0 = time.perf_counter()
+        cpu_res = make_batched_solver(tr, opts, "cpu", scale_z0=z0)(Z0[:4])
+        cpu_s = time.perf_counter() - t0
+        conv_cpu = cpu_res.converged.numpy()
+        conv_gpu = res.converged[:4].cpu().numpy()
+        f_cpu = cpu_res.f.numpy()
+        f_gpu = res.f[:4].cpu().numpy()
+        rel = np.abs(f_gpu - f_cpu) / np.abs(f_cpu)
+        lanes = {"converged_cpu": conv_cpu.tolist(),
+                 "converged_cuda": conv_gpu.tolist(),
+                 "iterations_cpu": cpu_res.iterations.tolist(),
+                 "iterations_cuda": res.iterations[:4].tolist(),
+                 "f_cpu": f_cpu.tolist(), "f_cuda": f_gpu.tolist(),
+                 "cpu_wall_s": cpu_s}
+        print("phase 4 solve parity lanes 0-3, kkt=dense: "
+              + json.dumps(lanes), flush=True)
+        out["solve_parity_dense"] = lanes
+        if not conv_cpu.any():
+            _fail("phase 4: no lane converged on the CPU")
+        if (conv_cpu & ~conv_gpu).any():
+            _fail("phase 4: a lane converged on the CPU but not on the card")
+        if (rel[conv_cpu] > 1e-2).any():
+            _fail(f"phase 4: objectives differ by {rel.max():.3e} (> 1e-2)")
+
+    # ---- phase 5: simplified lane, dense KKT
+    if 5 in phases:
+        tr_s = hanging_muscle_study(25, ignore_tendon_compliance=True,
+                                    ignore_activation_dynamics=True,
+                                    tendon_dynamics_implicit=False
+                                    ).transcription()
+        opts_s = IPMOptions(max_iter=150, kkt="dense", **bench)
+        Z0_s = batch_guesses(tr_s, 8, scale=0.05, seed=0)
+        _, stats_s = _solve_lane(torch, tr_s, opts_s, tr_s.initial_guess(),
                                  Z0_s, dev)
-    print("phase 5 simplified (mesh 25, B=32, f64, cuda): "
-          + json.dumps(stats_s), flush=True)
-    out["simplified"] = stats_s
-    if stats["converged"] == 0 or stats_s["converged"] == 0:
-        _fail("no lane of a bench batch converged on the card")
-    if not np.isfinite(res_s.z.cpu().numpy()).all():
-        _fail("phase 5: non-finite solution on the card")
+        print("phase 5 simplified, kkt=dense (mesh 25, B=8, f64, cuda): "
+              + json.dumps(stats_s), flush=True)
+        out["simplified_dense"] = stats_s
+        if stats_s["converged"] == 0:
+            _fail("phase 5: no lane converged")
+
+    # ---- phase 6: full-dynamics lane, kkt="auto" (the JAX bench's mode)
+    launches = {}
+    if 6 in phases:
+        _, stats6 = _solve_lane(torch, tr, dataclasses.replace(
+            opts, kkt="auto"), z0, Z0, dev, LAUNCHES)
+        print("phase 6 full dynamics, kkt=auto (mesh 25, B=32, f64, cuda): "
+              + json.dumps(stats6), flush=True)
+        out["full_dynamics_auto"] = stats6
+        if stats6["converged"] == 0:
+            _fail("phase 6: no lane converged")
+        if stats6["launches"]["btb_factor"] == 0 or \
+                stats6["launches"]["btb_solve"] == 0:
+            _fail("phase 6: the least-squares start did not go through K1")
+
+    # ---- phase 7: full-dynamics lane, kkt="structured" (K1 throughout)
+    if 7 in phases:
+        res7, stats7 = _solve_lane(torch, tr, opts_st, z0, Z0, dev,
+                                   LAUNCHES)
+        launches = stats7["launches"]
+        print("phase 7 full dynamics, kkt=structured (mesh 25, B=32, f64, "
+              "cuda): " + json.dumps(stats7), flush=True)
+        out["full_dynamics_structured"] = stats7
+        if stats7["converged"] == 0:
+            _fail("phase 7: no lane converged")
+        if min(launches.values()) == 0:
+            _fail(f"phase 7: a kernel of the path never launched: "
+                  f"{launches}")
+        if res is not None:
+            B2 = len(res.f)
+            both = res.converged.cpu().numpy() & \
+                res7.converged[:B2].cpu().numpy()
+            f_d, f_s = res.f.cpu().numpy(), res7.f[:B2].cpu().numpy()
+            rel = np.abs(f_s - f_d) / np.abs(f_d)
+            print(f"phase 7 lanes 0-{B2 - 1} converged under dense and "
+                  f"structured: "
+                  f"{int(both.sum())}, max objective rel diff "
+                  f"{float(rel[both].max()) if both.any() else 0.0}",
+                  flush=True)
+            if (rel[both] > 1e-2).any():
+                _fail("phase 7: dense and structured objectives differ by "
+                      "more than 1e-2")
+
+    # ---- phase 8: K1 against its plain version
+    kernels = []
+    if 8 in phases:
+        blocks = _capture_first_newton_blocks(torch, tr, opts_st, z0, Z0)
+        shapes = {"a_bench_newton": (blocks, 3, 1, 200),
+                  "b_random_nb200": (_random_blocks(torch, 8, 16, 200, 4, 2),
+                                     3, 3, 20)}
+        k1 = {}
+        for name, (blk, r, seed, reps) in shapes.items():
+            k1[name] = _check_btb(torch, *blk, r, seed, reps)
+            print(f"phase 8{name[0]} K1 vs plain, {name}: "
+                  + json.dumps(k1[name]), flush=True)
+        # (c) one singular lane: non-finite output, no exception
+        from opensim_moco_tpu_torch.ops import btb as k1_ops
+
+        D, L, Bm, C = _random_blocks(torch, 2, 4, 34, 1, 4)
+        D[1, 2] = 0.0  # lane 1: D_2 = 0 and L_1 = 0 make S_2 = 0
+        L[1, 1] = 0.0
+        fac = k1_ops.btb_factor(D, L, Bm, C)
+        x, w = k1_ops.btb_solve(fac, torch.ones_like(D[..., 0]),
+                                torch.ones_like(C[..., 0]))
+        torch.cuda.synchronize()
+        sing = {"lane0_finite": bool(torch.isfinite(x[0]).all()),
+                "lane1_finite": bool(torch.isfinite(x[1]).all())}
+        print("phase 8c singular lane: " + json.dumps(sing), flush=True)
+        k1["c_singular"] = sing
+        out["k1"] = k1
+        if not sing["lane0_finite"] or sing["lane1_finite"]:
+            _fail("phase 8c: a singular block must give non-finite output "
+                  "in its lane only")
+        for name, r in k1.items():
+            if name.startswith("c_"):
+                continue
+            if not r["finite"] or r["max_lane_rel_err"] > KERNEL_RTOL:
+                _fail(f"phase 8 {name}: K1 and the plain version disagree")
+        a = k1["a_bench_newton"]
+        for kern, part in (("btb_factor", "factor"), ("btb_solve", "solve")):
+            kernels.append({
+                "name": kern, "route": "cuda",
+                "source": "opensim_moco_tpu_torch/csrc/btb.cu",
+                "replaces": ("opensim_moco_tpu/solver/structured.py:337"
+                             if part == "factor" else
+                             "opensim_moco_tpu/solver/structured.py:367"),
+                "launches": launches.get(kern, 0),
+                "max_abs_err": a["max_abs_err"],
+                "ms": a[f"{part}_ms"], "plain_ms": a[f"plain_{part}_ms"],
+                "bound_ms": a[f"{part}_bound_ms"],
+                "bound_by": a[f"{part}_bound_by"],
+                "library_ms": a[f"library_{part}_ms"]})
+
+    # ---- phase 9: card against CPU, iterate level, structured
+    if 9 in phases:
+        par = _iterate_parity(torch, tr, opts_st, z0, Z0)
+        print("phase 9 iterate parity cuda vs cpu after 3 steps, "
+              "kkt=structured: " + json.dumps(par), flush=True)
+        out["iterate_parity_structured"] = par
+        if max(par["max_lane_rel_err"].values()) > ITERATE_RTOL or \
+                not all(par["exact"].values()):
+            _fail("phase 9: card and CPU iterates disagree")
 
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
-    print(json.dumps({"kernels": []}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

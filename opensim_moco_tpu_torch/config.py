@@ -1,8 +1,9 @@
 """Device and dtype handling for the PyTorch port.
 
-Every builder that creates tensors takes an explicit ``torch.device`` and
-``torch.dtype``; nothing falls back to the CPU when a CUDA device is asked
-for and missing. The solver runs in float64 by default, the precision the
+Every builder that creates tensors takes a ``torch.device`` and a
+``torch.dtype``. The device defaults to the CUDA card; the CPU is used only
+when the caller asks for it, and nothing falls back to the CPU when the
+card is missing. The solver runs in float64 by default, the precision the
 JAX package's tests and CPU solves use.
 """
 
@@ -13,13 +14,11 @@ import contextlib
 import torch
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device="cuda") -> torch.device:
     """``torch.device`` for ``device`` (a device, or a string such as
-    ``"cuda"``). Raises when a CUDA device is requested but absent."""
-    if device is None:
-        raise ValueError("an explicit device is required (e.g. 'cpu' or "
-                         "'cuda')")
-    dev = torch.device(device)
+    ``"cpu"``; None means the default, ``"cuda"``). Raises when a CUDA
+    device is requested but absent."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            "available")

@@ -249,7 +249,7 @@ class Model:
                 [a.optimal_force for a in self.actuators])
         return p
 
-    def default_params(self, device, dtype=torch.float64) -> dict:
+    def default_params(self, device="cuda", dtype=torch.float64) -> dict:
         """Parameter dict of tensors on ``device``."""
         return params_from_numpy(self.numpy_params(), device, dtype)
 

@@ -33,6 +33,22 @@ class Goal:
     # number of outputs in endpoint-constraint mode
     num_outputs: int = 1
 
+    def hessian_block_local(self) -> bool:
+        """True iff this goal's cost-mode ``value`` adds no cross-time-block
+        curvature to the Lagrangian Hessian: it is affine in the integral
+        (whose integrand is per grid point) plus any function of border
+        variables and of grid points within one time block. The structured
+        KKT path compresses the Hessian assuming block-diagonal + border
+        sparsity, so ``Transcription.kkt_structure`` returns None (dense
+        path) unless every cost goal reports True.
+
+        Conservative default: a goal that does not override :meth:`value`
+        is safe; an override is unsafe unless the subclass sets
+        ``_VALUE_BLOCK_LOCAL = True`` or overrides this method."""
+        if type(self).value is Goal.value:
+            return True
+        return bool(getattr(type(self), "_VALUE_BLOCK_LOCAL", False))
+
     def integrand(self, rep, t, y, x, lam, p):
         return torch.zeros_like(t)
 
@@ -60,6 +76,11 @@ class ControlGoal(Goal):
             raise NotImplementedError("ControlGoal.divide_by_displacement is "
                                       "not ported yet (ROADMAP.md, queue 1)")
 
+    def hessian_block_local(self) -> bool:
+        # dividing the integral by a nonlinear function of the endpoint
+        # states couples every block's curvature with the first and last
+        return not self.divide_by_displacement
+
     def _weights(self, control_names):
         w = np.ones(len(control_names))
         for pat, pw in self.pattern_weights.items():
@@ -82,6 +103,7 @@ class ControlGoal(Goal):
 class FinalTimeGoal(Goal):
     """Minimize the final time (MocoFinalTimeGoal)."""
     name: str = "final_time"
+    _VALUE_BLOCK_LOCAL = True  # value reads a border variable (tf) only
 
     def value(self, rep, initial, final, integral, p):
         return final[0]
@@ -92,6 +114,7 @@ class InitialActivationGoal(Goal):
     """sum_i (excitation_i(t0) - activation_i(t0))^2
     (MocoInitialActivationGoal)."""
     name: str = "initial_activation"
+    _VALUE_BLOCK_LOCAL = True  # value reads the initial grid point only
 
     def value(self, rep, initial, final, integral, p):
         y0 = initial[1]
@@ -110,6 +133,7 @@ class InitialActivationGoal(Goal):
 class _InitialMuscleEquilibrium(Goal):
     """Shared plumbing of the two initial-equilibrium goals: one residual
     per compliant-tendon muscle, stacked on the last dim."""
+    _VALUE_BLOCK_LOCAL = True  # value reads the initial grid point only
 
     def auto_outputs(self, rep):
         return sum(1 for m in rep.model.muscles

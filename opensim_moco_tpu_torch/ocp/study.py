@@ -1,9 +1,10 @@
 """Study: problem + solver facade (MocoStudy analogue).
 
 Counterpart of ``opensim_moco_tpu.ocp.study.Study`` on its non-chunked
-path: ``solve`` transcribes the problem, builds the solver on an explicit
-device, scales the NLP at the initial guess, runs one lane and expands the
-flat solution into a :class:`Solution` of numpy arrays.
+path: ``solve`` transcribes the problem, builds the solver on a device
+(the card unless the caller asks for the CPU), scales the NLP at the
+initial guess, runs one lane and expands the flat solution into a
+:class:`Solution` of numpy arrays.
 """
 
 from __future__ import annotations
@@ -67,9 +68,11 @@ class Study:
     def transcription(self) -> Transcription:
         return Transcription(self.problem.create_rep(), self.solver_options)
 
-    def solve(self, device, dtype=torch.float64, guess=None) -> Solution:
+    def solve(self, device="cuda", dtype=torch.float64,
+              guess=None) -> Solution:
         """Solve from ``guess`` (flat numpy iterate; default: the
-        bounds-midpoint guess) on ``device``."""
+        bounds-midpoint guess) on ``device`` (the card unless the caller
+        asks for the CPU)."""
         dev = resolve_device(device)
         tr = self.transcription()
         z0 = tr.initial_guess() if guess is None else np.asarray(guess)

@@ -1,0 +1,136 @@
+"""K1: the batched bordered block-tridiagonal KKT factor and solve.
+
+Wrappers of the hand-written CUDA kernels in ``csrc/btb.cu`` (see the note
+there: what they replace, what bounds them, what their design does about
+it). Same signatures and results as the plain PyTorch versions
+``solver.structured.btb_factor`` and ``btb_solve``:
+
+* a CPU tensor takes the plain version (that is how the CPU tests run);
+* a CUDA tensor takes the kernel, or raises: float64 only, contiguous,
+  consistent shapes, launched on the current stream, a non-zero launch
+  status raises. Nothing falls back to the plain version on the card.
+
+``LAUNCHES`` counts kernel launches per kernel (plain calls are not
+counted), so a run can show that its main path went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..solver.structured import BTBFac
+from ..solver.structured import btb_factor as btb_factor_plain
+from ..solver.structured import btb_solve as btb_solve_plain
+from ._build import load
+
+LAUNCHES = {"btb_factor": 0, "btb_solve": 0}
+SMEM_LIMIT = 200 * 1024  # bytes of shared memory the factor may ask for
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = load("btb")
+    if not getattr(lib, "_typed", False):
+        lib.btb_factor_f64.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+        lib.btb_factor_f64.restype = _I
+        lib.btb_solve_f64.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        lib.btb_solve_f64.restype = _I
+        lib.btb_error_string.argtypes = [_I]
+        lib.btb_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check(name, t, shape, dtype=torch.float64):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.btb_error_string(rc).decode()}")
+
+
+def use_shared_memory(nb, k):
+    """Whether the factor keeps its working blocks in shared memory."""
+    return 8 * (2 * nb * nb + nb * k) <= SMEM_LIMIT
+
+
+def btb_factor(D, L, B, C) -> BTBFac:
+    """Factor [[T, B], [B^T, C]] per lane (see ``structured.btb_factor``):
+    D (Bt, N, nb, nb), L (Bt, N-1, nb, nb), B (Bt, N, nb, k), C (Bt, k, k)."""
+    if D.device.type == "cpu":
+        return btb_factor_plain(D, L, B, C)
+    Bt, N, nb, _ = D.shape
+    k = B.shape[-1]
+    _check("D", D, (Bt, N, nb, nb))
+    _check("L", L, (Bt, N - 1, nb, nb))
+    _check("B", B, (Bt, N, nb, k))
+    _check("C", C, (Bt, k, k))
+    if Bt == 0 or N < 1 or nb == 0:
+        raise ValueError(f"btb_factor: empty problem {tuple(D.shape)}")
+    smem = use_shared_memory(nb, k)
+    S_lu = torch.empty_like(D)
+    S_piv = torch.empty((Bt, N, nb), dtype=torch.int32, device=D.device)
+    Tinv_B = torch.empty_like(B)
+    Sb_lu = torch.empty_like(C)
+    Sb_piv = torch.empty((Bt, k), dtype=torch.int32, device=D.device)
+    scratch = None if smem else D.new_empty((Bt, nb, nb))
+    lib = _lib()
+    rc = lib.btb_factor_f64(
+        D.data_ptr(), L.data_ptr(), B.data_ptr(), C.data_ptr(),
+        S_lu.data_ptr(), S_piv.data_ptr(), Tinv_B.data_ptr(),
+        Sb_lu.data_ptr(), Sb_piv.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        Bt, N, nb, k, int(smem),
+        torch.cuda.current_stream(D.device).cuda_stream)
+    _raise_on(lib, rc, "btb_factor")
+    LAUNCHES["btb_factor"] += 1
+    return BTBFac(S_lu, S_piv, L, B, Tinv_B, Sb_lu, Sb_piv)
+
+
+def btb_solve(fac: BTBFac, rhs_T, rhs_C):
+    """Solve with a factorization (see ``structured.btb_solve``):
+    rhs_T (Bt, N, nb[, r]), rhs_C (Bt, k[, r])."""
+    if rhs_T.device.type == "cpu":
+        return btb_solve_plain(fac, rhs_T, rhs_C)
+    single = rhs_T.dim() == 3
+    if single:
+        rhs_T, rhs_C = rhs_T[..., None], rhs_C[..., None]
+    Bt, N, nb, r = rhs_T.shape
+    k = fac.B.shape[-1]
+    _check("S_lu", fac.S_lu, (Bt, N, nb, nb))
+    _check("S_piv", fac.S_piv, (Bt, N, nb), torch.int32)
+    _check("L", fac.L, (Bt, N - 1, nb, nb))
+    _check("B", fac.B, (Bt, N, nb, k))
+    _check("Tinv_B", fac.Tinv_B, (Bt, N, nb, k))
+    _check("Sb_lu", fac.Sb_lu, (Bt, k, k))
+    _check("Sb_piv", fac.Sb_piv, (Bt, k), torch.int32)
+    _check("rhs_T", rhs_T, (Bt, N, nb, r))
+    _check("rhs_C", rhs_C, (Bt, k, r))
+    if Bt == 0 or r == 0:
+        raise ValueError(f"btb_solve: empty right-hand side "
+                         f"{tuple(rhs_T.shape)}")
+    x = torch.empty_like(rhs_T)
+    w = torch.empty_like(rhs_C)
+    lib = _lib()
+    rc = lib.btb_solve_f64(
+        fac.S_lu.data_ptr(), fac.S_piv.data_ptr(), fac.L.data_ptr(),
+        fac.B.data_ptr(), fac.Tinv_B.data_ptr(), fac.Sb_lu.data_ptr(),
+        fac.Sb_piv.data_ptr(), rhs_T.data_ptr(), rhs_C.data_ptr(),
+        x.data_ptr(), w.data_ptr(), Bt, N, nb, k, r,
+        torch.cuda.current_stream(rhs_T.device).cuda_stream)
+    _raise_on(lib, rc, "btb_solve")
+    LAUNCHES["btb_solve"] += 1
+    return (x[..., 0], w[..., 0]) if single else (x, w)

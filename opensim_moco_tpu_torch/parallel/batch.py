@@ -14,7 +14,7 @@ from ..transcribe.transcription import Transcription
 
 
 def make_batched_solver(transcription: Transcription,
-                        ipm_options: IPMOptions, device,
+                        ipm_options: IPMOptions, device="cuda",
                         dtype=torch.float64, scale_z0=None):
     """``solve(Z0) -> IPMResult`` for Z0 of shape (B, n) on ``device``.
 

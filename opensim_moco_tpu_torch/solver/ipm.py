@@ -23,12 +23,20 @@ lane dimension B and every lane computes what it would compute alone.
 * the regularization ``while_loop`` runs while any lane still needs a
   trial and applies a new trial only to those lanes.
 
-Derivatives: ``torch.func.jacfwd`` for the constraint Jacobian and
-``jacfwd(grad(lagrangian))`` for the Lagrangian Hessian, under
-``torch.func.vmap`` over lanes. Only the dense KKT path is ported: one
-pivoted LU of the full (n+m) KKT per regularization trial
-(``torch.linalg.lu_factor_ex``, which reports a singular factor through
-NaN/inf in the solve rather than by raising).
+Derivatives and KKT, as in the JAX package, with two levers:
+
+* compressed block derivatives (``solver/structured.py``): whenever the NLP
+  carries a KKT structure and ``kkt != "dense"``, J and the Lagrangian
+  Hessian come from ``2·nv + kv`` and ``nv + kv`` seeded tangents instead
+  of ``n``; otherwise ``torch.func.jacfwd`` and ``jacfwd(grad(L))`` under
+  ``vmap`` over lanes;
+* the bordered block-tridiagonal ("btb") factorization: under
+  ``kkt="structured"``, or ``"auto"`` with n+m >= ``kkt_structured_min_dim``,
+  each regularization trial factors the KKT blocks with K1
+  (``ops/btb.py``: the CUDA kernel on the card, its plain version on the
+  CPU); otherwise one pivoted LU of the full (n+m) KKT
+  (``torch.linalg.lu_factor_ex``). Both report a singular factor through
+  NaN/inf in the solve rather than by raising.
 
 Host synchronisation: the solve loop reads one flag per iteration (are all
 lanes done?) and the regularization loop one per trial (does any lane
@@ -43,10 +51,16 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.func import grad, jacfwd, vmap
+from torch.func import grad, jacfwd, jvp, vjp, vmap
 
 from ..config import full_precision, resolve_device
+from ..ops import btb as k1
+from .kkt import CompiledStructure
 from .nlp import NLP
+from .structured import (BlockDerivatives, BTBFac, assemble_kkt_blocks,
+                         block_H_diag, block_H_matvec, dense_H_from_blocks,
+                         dense_J_from_blocks, pack_rhs, unpack_sol)
+from .structured import lu_factor as _lu_factor
 
 FILTER_SIZE = 64
 
@@ -81,9 +95,7 @@ class IPMOptions:
     s_phi: float = 2.3
     delta_switch: float = 1.0
     eta_phi: float = 1e-8
-    # "dense" and "auto" (on a structure-less NLP, which every port NLP
-    # is) take the dense path; "structured" is not ported yet
-    kkt: str = "auto"
+    kkt: str = "auto"  # | "dense" | "structured"
     kkt_structured_min_dim: int = 1200
     dense_factorization: str = "lu"  # "chol-schur" is not ported yet
     init_multipliers: str = "least-squares"  # | "zero"
@@ -143,22 +155,6 @@ def _where(cond, a, b):
     return torch.where(cond, a, b)
 
 
-def _lu_factor(K):
-    """Pivoted LU of a batch (B, k, k) with no error check (a singular
-    factor shows up as NaN/inf in the solve, never as an exception).
-
-    On the CPU the batch is factored one matrix at a time: MKL's batched
-    ``getrf`` under ATen's multi-threaded batch loop hangs for k above a
-    few hundred (torch 2.13, more than one thread). On CUDA one batched
-    call factors every lane."""
-    if K.device.type == "cpu":
-        facs = [torch.linalg.lu_factor_ex(k) for k in K]
-        return (torch.stack([f[0] for f in facs]),
-                torch.stack([f[1] for f in facs]))
-    LU, piv, _ = torch.linalg.lu_factor_ex(K)
-    return LU, piv
-
-
 def _validate(opt: IPMOptions):
     if opt.kkt not in ("auto", "dense", "structured"):
         raise ValueError(f"kkt must be auto|dense|structured, got "
@@ -166,29 +162,34 @@ def _validate(opt: IPMOptions):
     if opt.dense_factorization not in ("lu", "chol-schur"):
         raise ValueError(f"dense_factorization must be lu|chol-schur, got "
                          f"{opt.dense_factorization!r}")
-    if opt.kkt == "structured":
-        raise NotImplementedError("kkt='structured' (block-tridiagonal KKT) "
-                                  "is not ported yet (ROADMAP.md, queue 1)")
     if opt.dense_factorization == "chol-schur":
         raise NotImplementedError("dense_factorization='chol-schur' is not "
                                   "ported yet (ROADMAP.md, queue 1)")
 
 
 def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
-                *, device, dtype=torch.float64):
+                *, device="cuda", dtype=torch.float64):
     """Build batched ``(init_fn, body_fn, cond_fn, finalize_fn)``.
 
     ``init_fn(Z0)`` takes (B, n) starting points and returns a
     :class:`Carry`; ``body_fn`` advances every live lane by one iteration;
     ``cond_fn`` says which lanes are live; ``finalize_fn`` gives the
     :class:`IPMResult`. ``scale_z0``: reference point (n,) for IPOPT-style
-    gradient-based scaling of the objective and each constraint row."""
+    gradient-based scaling of the objective and each constraint row.
+    ``device``: the card unless the caller asks for the CPU."""
     opt = options
     _validate(opt)
     dev = resolve_device(device)
 
     def const(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    st = nlp.structure
+    cs_full = None
+    if nlp.m and st is not None:
+        cs_full = CompiledStructure(st.var_blocks, st.con_blocks,
+                                    st.border_vars, st.border_cons,
+                                    nlp.n, nlp.m)
 
     f_unscale = 1.0
     f_base, c_base = nlp.objective, nlp.constraints
@@ -198,12 +199,13 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
         gmax = 100.0
         f_scale = float(min(1.0, gmax / max(np.max(np.abs(g0)), 1e-8)))
         f_unscale = 1.0 / f_scale
-        if nlp.m:
-            row_norms = jacfwd(c_base)(z0s).abs().amax(-1).cpu().numpy()
-            c_scale = const(np.minimum(1.0, gmax /
-                                       np.maximum(row_norms, 1e-8)))
+        if cs_full is not None:
+            # compressed 2-coloring pass: O(nv) tangents, not O(n)
+            row_norms = BlockDerivatives(cs_full, c_base, dev,
+                                         dtype).jac_row_inf_norms(z0s)
         else:
-            c_scale = const(np.ones(0))
+            row_norms = jacfwd(c_base)(z0s).abs().amax(-1).cpu().numpy()
+        c_scale = const(np.minimum(1.0, gmax / np.maximum(row_norms, 1e-8)))
         f_scaled = lambda z: f_scale * f_base(z)  # noqa: E731
         c_scaled = lambda z: c_scale * c_base(z)  # noqa: E731
     else:
@@ -241,9 +243,33 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
     grad_f = vmap(grad(f_fn))
     jac_c = vmap(jacfwd(c_fn))
     if opt.hessian_approximation == "objective-only":
+        # drop constraint curvature: the Hessian is the objective's
         hess_L = vmap(lambda z, nu: jacfwd(grad(f_fn))(z))
+
+        def lag_grad(z, nu):
+            return grad(lambda zz: f_fn(zz).sum())(z)
     else:
         hess_L = vmap(jacfwd(grad(lagrangian)))
+
+        def lag_grad(z, nu):
+            """Per-lane gradient of the Lagrangian, (..., n) (the lanes
+            are independent, so the gradient of their sum)."""
+            return grad(lambda zz: lagrangian(zz, nu).sum())(z)
+
+    # ---- structured path, two levers (as in the JAX package):
+    # * compressed block derivatives whenever a KKT structure exists and
+    #   kkt != "dense": O(nv) tangents instead of O(n);
+    # * the btb factorization (K1) under kkt="structured", or "auto" once
+    #   n+m reaches kkt_structured_min_dim.
+    # kkt="dense" is a full opt-out: dense autodiff, one dense LU.
+    bd = ix = None
+    if cs_full is not None and opt.kkt != "dense":
+        cs = cs_full.remap_free(free_idx) if has_fixed else cs_full
+        bd = BlockDerivatives(cs, c_fn, dev, dtype)
+        ix = bd.ix
+    use_btb = bd is not None and (
+        opt.kkt == "structured" or
+        (opt.kkt == "auto" and n + m >= opt.kkt_structured_min_dim))
 
     has_l_np = np.isfinite(lb_np)
     has_u_np = np.isfinite(ub_np)
@@ -298,6 +324,24 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
         LU, piv = _lu_factor(K)
         return torch.linalg.lu_solve(LU, piv, rhs.unsqueeze(-1)).squeeze(-1)
 
+    def _ls_multipliers_btb(z, r1):
+        """Least-squares multipliers from the btb system with H = I:
+        [[I, J^T], [J, -1e-8 I]] [., nu] = [r1, 0]."""
+        B = z.shape[0]
+        mv = ix.mv
+        eye_v = torch.eye(ix.nv, dtype=dtype, device=dev)
+        hb0 = dict(
+            Hvv=(eye_v * (mv[:, :, None] * mv[:, None, :])).expand(
+                B, ix.N, ix.nv, ix.nv),
+            Hvb=z.new_zeros((B, ix.N, ix.nv, ix.kv)),
+            Hbb=torch.eye(ix.kv, dtype=dtype, device=dev).expand(
+                B, ix.kv, ix.kv))
+        fac0 = k1.btb_factor(*assemble_kkt_blocks(
+            hb0, bd.jac_blocks(z), z.new_zeros((B, n)), z.new_zeros(B),
+            z.new_full((B,), 1e-8), ix))
+        x0, w0 = k1.btb_solve(fac0, *pack_rhs(r1, z.new_zeros((B, m)), ix))
+        return unpack_sol(x0, w0, ix)[1]
+
     def init_fn(Z0_full) -> Carry:
         Z0_full = torch.as_tensor(Z0_full, dtype=dtype, device=dev)
         z0 = Z0_full.index_select(-1, free_t) if has_fixed else Z0_full
@@ -321,12 +365,17 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
             g0 = grad_f(z)
             r1 = -(g0 - torch.where(has_l, wL, 0.0) +
                    torch.where(has_u, wU, 0.0))
-            J0 = jac_c(z)
-            K0 = torch.cat([
-                torch.cat([eye_n.expand(B, n, n), J0.transpose(-1, -2)], -1),
-                torch.cat([J0, (-1e-8 * eye_m).expand(B, m, m)], -1)], -2)
-            nu0 = _lu_solve(K0, torch.cat([r1, z.new_zeros((B, m))],
-                                          -1))[:, n:]
+            if bd is not None:
+                nu0 = _ls_multipliers_btb(z, r1)
+            else:
+                J0 = jac_c(z)
+                K0 = torch.cat([
+                    torch.cat([eye_n.expand(B, n, n),
+                               J0.transpose(-1, -2)], -1),
+                    torch.cat([J0, (-1e-8 * eye_m).expand(B, m, m)], -1)],
+                    -2)
+                nu0 = _lu_solve(K0, torch.cat([r1, z.new_zeros((B, m))],
+                                              -1))[:, n:]
             # degenerate-Jacobian guard: discard a huge least-squares dual
             nu0 = torch.where(torch.isfinite(nu0), nu0, 0.0)
             nu0 = _where(_inf_norm(nu0) <= 1e3, nu0, torch.zeros_like(nu0))
@@ -368,10 +417,19 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
         SigU = torch.where(has_u, wU / dus, 0.0)
         Sig = SigL + SigU
 
-        J = jac_c(z)
-        W = hess_L(z, nu)
-        Jt_nu = (J.transpose(-1, -2) @ nu.unsqueeze(-1)).squeeze(-1)
-        h_diag = torch.diagonal(W, dim1=-2, dim2=-1)
+        if bd is not None:
+            jb = bd.jac_blocks(z)
+            hb = bd.hess_blocks(lag_grad, z, nu)
+            Jt_nu = vjp(c_fn, z)[1](nu)[0]
+            h_diag = block_H_diag(hb, ix)
+            if not use_btb:
+                J = dense_J_from_blocks(jb, ix)
+                W = dense_H_from_blocks(hb, ix)
+        else:
+            J = jac_c(z)
+            W = hess_L(z, nu)
+            Jt_nu = (J.transpose(-1, -2) @ nu.unsqueeze(-1)).squeeze(-1)
+            h_diag = torch.diagonal(W, dim1=-2, dim2=-1)
         rd = g + Jt_nu - torch.where(has_l, wL, 0.0) + \
             torch.where(has_u, wU, 0.0)
         smax = 100.0
@@ -427,35 +485,51 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
             torch.where(has_u, mu_col / dus, 0.0)
         wscale = torch.clamp(_inf_norm(h_diag + Sig), min=1.0)
         delta_c = 1e-8 * wscale
-        H = W + torch.diag_embed(Sig)
 
-        def H_mv(v):
-            return (H @ v.unsqueeze(-1)).squeeze(-1)
+        # factor once per regularization trial; the Newton step, the
+        # second-order correction and the feasibility fallback share it
+        if use_btb:
+            def H_mv(v):
+                return block_H_matvec(hb, ix, v) + Sig * v
 
-        def kkt_factor(delta_w):
-            Hd = H + delta_w[:, None, None] * eye_n
-            if m:
-                K = torch.cat([
-                    torch.cat([Hd, J.transpose(-1, -2)], -1),
-                    torch.cat([J, -delta_c[:, None, None] * eye_m], -1)], -2)
-            else:
-                K = Hd
-            return _lu_factor(K)
+            def kkt_factor(delta_w):
+                return k1.btb_factor(*assemble_kkt_blocks(
+                    hb, jb, Sig, delta_w, delta_c, ix))
 
-        def kkt_solve(fac, r1, r2):
-            LU, piv = fac
-            rhs = torch.cat([r1, r2], -1) if m else r1
-            sol = torch.linalg.lu_solve(LU, piv,
-                                        rhs.unsqueeze(-1)).squeeze(-1)
-            return sol[:, :n], sol[:, n:]
+            def kkt_solve(fac, r1, r2):
+                x, w = k1.btb_solve(fac, *pack_rhs(r1, r2, ix))
+                return unpack_sol(x, w, ix)
+        else:
+            H = W + torch.diag_embed(Sig)
+
+            def H_mv(v):
+                return (H @ v.unsqueeze(-1)).squeeze(-1)
+
+            def kkt_factor(delta_w):
+                Hd = H + delta_w[:, None, None] * eye_n
+                if m:
+                    K = torch.cat([
+                        torch.cat([Hd, J.transpose(-1, -2)], -1),
+                        torch.cat([J, -delta_c[:, None, None] * eye_m], -1)],
+                        -2)
+                else:
+                    K = Hd
+                return _lu_factor(K)
+
+            def kkt_solve(fac, r1, r2):
+                LU, piv = fac
+                rhs = torch.cat([r1, r2], -1) if m else r1
+                sol = torch.linalg.lu_solve(LU, piv,
+                                            rhs.unsqueeze(-1)).squeeze(-1)
+                return sol[:, :n], sol[:, n:]
 
         def kkt_solve_refined(fac, delta, r1, r2):
-            """kkt_solve + iterative refinement on the KKT residual
-            (kkt_refine_iters=0 is a plain solve)."""
+            """kkt_solve + operator-form iterative refinement on the KKT
+            residual (kkt_refine_iters=0 is a plain solve)."""
             dz, dnu = kkt_solve(fac, r1, r2)
             for _ in range(opt.kkt_refine_iters):
-                Jt_dnu = (J.transpose(-1, -2) @ dnu.unsqueeze(-1)).squeeze(-1)
-                Jdz = (J @ dz.unsqueeze(-1)).squeeze(-1)
+                Jt_dnu = vjp(c_fn, z)[1](dnu)[0]
+                Jdz = jvp(c_fn, (z,), (dz,))[1]
                 e1 = r1 - (H_mv(dz) + delta[:, None] * dz + Jt_dnu)
                 e2 = r2 - (Jdz - delta_c[:, None] * dnu)
                 ddz, ddnu = kkt_solve(fac, e1, e2)
@@ -493,8 +567,10 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
             dz = _where(need, t_dz, dz)
             dnu = _where(need, t_dnu, dnu)
             ok = torch.where(need, t_ok, ok)
-            fac = (_where(need, t_fac[0], fac[0]),
-                   _where(need, t_fac[1], fac[1]))
+            # lanes that need no new trial keep their factor, field by
+            # field
+            merged = [_where(need, t, f) for t, f in zip(t_fac, fac)]
+            fac = BTBFac(*merged) if use_btb else tuple(merged)
             tries = tries + need.to(torch.int32)
 
         dwL = torch.where(has_l, mu_col / dls - wL - SigL * dz, 0.0)
@@ -729,9 +805,10 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
 
 
 def make_solver(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
-                *, device, dtype=torch.float64) -> Callable:
+                *, device="cuda", dtype=torch.float64) -> Callable:
     """``solve(Z0) -> IPMResult`` for a batch of starting points Z0 (B, n)
-    (numpy or tensor), on ``device``. TF32 is off inside the solve."""
+    (numpy or tensor), on ``device`` (the card unless the caller asks for
+    the CPU). TF32 is off inside the solve."""
     dev = resolve_device(device)
     init_fn, body_fn, cond_fn, finalize_fn = make_kernel(
         nlp, options, scale_z0, device=dev, dtype=dtype)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..solver.nlp import NLP
+from ..solver.nlp import NLP, KKTStructure
 
 if TYPE_CHECKING:
     from ..ocp.problem import ProblemRep
@@ -273,7 +273,7 @@ class Transcription:
         return initial, final
 
     # ---------------------------------------------------------- constraints
-    def constraints_fn(self, device, dtype=torch.float64):
+    def constraints_fn(self, device="cuda", dtype=torch.float64):
         """``c(z)``: defects, algebraic residuals and endpoint-constraint
         rows, in the JAX package's row order."""
         rep = self.rep
@@ -323,7 +323,7 @@ class Transcription:
         return constraints
 
     # ------------------------------------------------------------ objective
-    def objective_fn(self, device, dtype=torch.float64):
+    def objective_fn(self, device="cuda", dtype=torch.float64):
         """``f(z)``: weighted cost goals plus the optional implicit-
         derivative penalties."""
         rep = self.rep
@@ -374,15 +374,84 @@ class Transcription:
             groups.append((f"endpoint:{g.name}", g.num_outputs))
         return groups
 
+    # ------------------------------------------------------- KKT structure
+    def kkt_structure(self):
+        """Time-grouped block structure of the NLP (see
+        ``solver.nlp.KKTStructure``): the variables and constraint rows of
+        mesh interval i form block i; the times, endpoint-constraint rows
+        and their slacks form the border. The same index lists as the JAX
+        package's ``Transcription.kkt_structure``.
+
+        None (dense path) when fewer than two intervals, or when a cost
+        goal adds cross-block curvature (``Goal.hessian_block_local``).
+        Raises on row groups the port does not assemble (path and
+        kinematic constraints, prescribed motion), rather than building a
+        wrong structure."""
+        rep = self.rep
+        if self.prescribed or self.nlam or rep.path_constraints or \
+                self.n_gamma or self.n_pc_slack:
+            raise NotImplementedError(
+                "kkt_structure: prescribed motion, kinematic and path "
+                "constraints are not ported yet (ROADMAP.md, queue 1)")
+        N = self.n_int
+        if N < 2:
+            return None
+        if not all(g.hessian_block_local() for g in self.cost_goals):
+            return None
+        o = self.offsets
+
+        def var_ids(kind, g, per):
+            start = o[kind][0] + g * per
+            return list(range(start, start + per))
+
+        def blk_of_grid(g):
+            return min(g // 2 if self.hermite_simpson else g, N - 1)
+
+        blocks_v = [[] for _ in range(N)]
+        for g in range(self.G):
+            b = blocks_v[blk_of_grid(g)]
+            b += var_ids("states", g, self.ny)
+            b += var_ids("controls", g, self.nx)
+            b += var_ids("derivs", g, self.nderiv)
+        border_v = [0, 1]
+        border_v += list(range(*o["ec_slack"]))
+        border_v += list(range(*o["params"]))
+
+        # constraint rows, in constraints_fn's assembly order
+        blocks_c = [[] for _ in range(N)]
+        off = 0
+        # interval-major defect rows: Hermite, Simpson, control midpoints
+        # (or the trapezoidal defect)
+        defects = [self.ny]
+        if self.hermite_simpson:
+            defects.append(self.ny)
+            if self.nx and self.opt.interpolate_control_midpoints:
+                defects.append(self.nx)
+        for size in defects:
+            for i in range(N):
+                blocks_c[i] += list(range(off, off + size))
+                off += size
+        n_alg = (self.nq if self.implicit_mb else 0) + self.n_zeta
+        if n_alg:  # grid-major DAE residual rows
+            for g in range(self.G):
+                blocks_c[blk_of_grid(g)] += list(range(off, off + n_alg))
+                off += n_alg
+        n_ec = sum(goal.num_outputs for goal in self.ec_goals)
+        border_c = list(range(off, off + n_ec))
+        return KKTStructure(var_blocks=blocks_v, con_blocks=blocks_c,
+                            border_vars=np.asarray(border_v, np.int64),
+                            border_cons=np.asarray(border_c, np.int64))
+
     # ---------------------------------------------------------------- NLP
-    def make_nlp(self, device, dtype=torch.float64) -> NLP:
-        """The NLP with its functions' constants on ``device``."""
+    def make_nlp(self, device="cuda", dtype=torch.float64) -> NLP:
+        """The NLP with its functions' constants on ``device`` and, where
+        the problem has one, its KKT block structure."""
         lb, ub = self.bounds()
         m = sum(size for _, size in self.constraint_group_info())
         return NLP(n=self.n, m=m,
                    objective=self.objective_fn(device, dtype),
                    constraints=self.constraints_fn(device, dtype),
-                   lb=lb, ub=ub, structure=None)
+                   lb=lb, ub=ub, structure=self.kkt_structure())
 
     # --------------------------------------------------------------- guess
     def initial_guess(self, dtype=np.float64):

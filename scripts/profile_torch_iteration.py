@@ -1,0 +1,170 @@
+"""Where an iteration of the port's batched IPM spends its time, per KKT mode.
+
+For the bench's full-dynamics hanging-muscle lane (mesh 25, B=32, float64,
+the bench's IPM options) and each ``kkt`` mode ("dense", "auto",
+"structured"), on one CUDA card:
+
+* seconds per ``body_fn`` call (host clock around 5 calls ending in
+  ``torch.cuda.synchronize()``, after ``init_fn`` and 3 warm-up steps);
+* a ``torch.profiler`` trace of 3 further steps: kernel launches, the
+  device's busy and idle share (busy = the union of the kernels' device
+  intervals), and the kernels with the most device time;
+
+and, at the same 32 starting points, the derivative passes timed alone:
+dense ``vmap(jacfwd(c))`` and ``vmap(jacfwd(grad(L)))`` against the
+compressed ``jac_blocks`` and ``hess_blocks``.
+
+Prints one JSON object per line. Run from the root of the repository::
+
+    python3 scripts/profile_torch_iteration.py [--out profile.json]
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.func import grad, jacfwd, vmap
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from opensim_moco_tpu_torch.config import full_precision  # noqa: E402
+from opensim_moco_tpu_torch.examples import hanging_muscle_study  # noqa: E402
+from opensim_moco_tpu_torch.parallel import batch_guesses  # noqa: E402
+from opensim_moco_tpu_torch.solver.ipm import (  # noqa: E402
+    IPMOptions, make_kernel)
+from opensim_moco_tpu_torch.solver.kkt import CompiledStructure  # noqa: E402
+from opensim_moco_tpu_torch.solver.structured import (  # noqa: E402
+    BlockDerivatives)
+
+BENCH = dict(tol=3e-3, max_iter=200, bound_relax=1e-6, mu_init=1e-2,
+             kappa_eps=100.0, acceptable_tol_factor=30.0, acceptable_iter=10,
+             max_rescues=100)
+
+
+def _host_s(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def _busy_share(prof):
+    """(kernel launches, device busy s, window s) from a profiler trace."""
+    spans, launches = [], 0
+    t_lo, t_hi = np.inf, -np.inf
+    for ev in prof.events():
+        t_lo = min(t_lo, ev.time_range.start)
+        t_hi = max(t_hi, ev.time_range.end)
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((ev.time_range.start, ev.time_range.end))
+        elif ev.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                         "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            launches += 1
+    busy, end = 0.0, -np.inf
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return launches, busy * 1e-6, (t_hi - t_lo) * 1e-6
+
+
+def profile_mode(tr, Z0, z0, mode, dev="cuda"):
+    nlp = tr.make_nlp(dev)
+    init_fn, body_fn, _, _ = make_kernel(
+        nlp, IPMOptions(**BENCH, kkt=mode), scale_z0=z0, device=dev)
+    with full_precision(dev):
+        carry = init_fn(Z0)
+        for _ in range(3):
+            carry = body_fn(carry)
+        state = [carry]
+
+        def step():
+            state[0] = body_fn(state[0])
+
+        s_iter = _host_s(step, 5)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+    launches, busy, window = _busy_share(prof)
+    top = sorted(((e.key, e.self_device_time_total * 1e-6, e.count)
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0),
+                 key=lambda r: -r[1])[:8]
+    return {"mode": mode, "body_fn_s": s_iter,
+            "profiled_steps": 3, "kernel_launches": launches,
+            "device_busy_s": busy, "window_s": window,
+            "device_idle_share": 1.0 - busy / window,
+            "top_device_s": [{"name": k[:80], "s": s, "count": c}
+                             for k, s, c in top]}
+
+
+def derivative_passes(tr, Z0, dev="cuda"):
+    """Dense and compressed derivative passes at the same points (the NLP
+    as transcribed: no scaling, fixed variables kept)."""
+    nlp = tr.make_nlp(dev)
+    st = nlp.structure
+    cs = CompiledStructure(st.var_blocks, st.con_blocks, st.border_vars,
+                           st.border_cons, nlp.n, nlp.m)
+    bd = BlockDerivatives(cs, nlp.constraints, dev)
+    z = torch.as_tensor(Z0, device=dev)
+    nu = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (len(Z0), nlp.m)), device=dev)
+
+    def lag(zz, nn):
+        return nlp.objective(zz) + (nlp.constraints(zz) * nn).sum(-1)
+
+    def lag_grad(zz, nn):
+        return grad(lambda q: lag(q, nn).sum())(zz)
+
+    with full_precision(dev):
+        out = {"n": nlp.n, "m": nlp.m, "N": cs.N, "nv": cs.nv, "nc": cs.nc,
+               "jac_seeds": int(bd.SJ.shape[0]),
+               "hess_seeds": int(bd.SH.shape[0]),
+               "dense_J_s": _host_s(
+                   lambda: vmap(jacfwd(nlp.constraints))(z), 5),
+               "dense_W_s": _host_s(
+                   lambda: vmap(jacfwd(grad(lag)))(z, nu), 5),
+               "jac_blocks_s": _host_s(lambda: bd.jac_blocks(z), 5),
+               "hess_blocks_s": _host_s(
+                   lambda: bd.hess_blocks(lag_grad, z, nu), 5)}
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the results to this JSON file")
+    ap.add_argument("--modes", default="dense,auto,structured")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("this profile needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
+    tr = hanging_muscle_study(25, ignore_tendon_compliance=False,
+                              ignore_activation_dynamics=False,
+                              tendon_dynamics_implicit=True).transcription()
+    Z0 = batch_guesses(tr, 32, scale=0.05, seed=0)
+    results = {"card": card, "derivatives": derivative_passes(tr, Z0)}
+    print(json.dumps(results["derivatives"]), flush=True)
+    for mode in args.modes.split(","):
+        results[mode] = profile_mode(tr, Z0, tr.initial_guess(), mode)
+        print(json.dumps(results[mode]), flush=True)
+    if args.out:
+        Path(args.out).write_text(json.dumps(results, indent=1))
+
+
+if __name__ == "__main__":
+    main()

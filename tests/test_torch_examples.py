@@ -39,7 +39,11 @@ def test_hanging_muscle_min_time_rigid_tendon():
     assert np.isfinite(sol.objective) and sol.num_iterations > 0
 
 
-def test_study_requires_a_device():
+def test_study_requires_a_device(monkeypatch):
+    """``Study.solve`` runs on the card unless the caller asks for the CPU;
+    without a card it raises (no CPU fallback)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     study = tex.sliding_mass_study(5)
-    with pytest.raises(ValueError, match="explicit device"):
-        study.solve(None)
+    for args in ((), (None,), ("cuda",)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            study.solve(*args)

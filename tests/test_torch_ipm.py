@@ -22,6 +22,7 @@ differences reroute a hard lane through a different sequence of iterates
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -192,7 +193,6 @@ def test_options_match_jax():
 
 
 @pytest.mark.parametrize("opts,err", [
-    (dict(kkt="structured"), NotImplementedError),
     (dict(dense_factorization="chol-schur"), NotImplementedError),
     (dict(kkt="btb"), ValueError),
     (dict(dense_factorization="qr"), ValueError),
@@ -204,7 +204,21 @@ def test_unported_options_raise(problem, opts, err):
                          device="cpu")
 
 
-def test_explicit_device_required(problem):
+def test_explicit_device_required(problem, monkeypatch):
+    """The CPU needs an explicit device: every entry point defaults to the
+    card, and without a card it raises rather than fall back."""
     _, trt, _, _ = problem
-    with pytest.raises(ValueError, match="explicit device"):
-        tipm.make_solver(trt.make_nlp("cpu"), tipm.IPMOptions(), device=None)
+    entry_points = (tipm.make_solver, tipm.make_kernel, make_batched_solver,
+                    trt.make_nlp, trt.rep.model.default_params,
+                    tex.sliding_mass_study(5).solve)
+    for fn in entry_points:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    nlp = trt.make_nlp("cpu")
+    for call in (lambda: tipm.make_solver(nlp, tipm.IPMOptions()),
+                 lambda: tipm.make_kernel(nlp, device=None),
+                 lambda: make_batched_solver(trt, tipm.IPMOptions()),
+                 trt.make_nlp, trt.rep.model.default_params,
+                 tex.sliding_mass_study(5).solve):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
