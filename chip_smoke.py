@@ -33,16 +33,26 @@ Phases, one report line each:
 8. K1 against its plain PyTorch version on the card, with times: (a) the
    KKT blocks the structured lane factors in its first iteration (B=32,
    N=25, nb=34, k=1), factor then a 3-column solve; (b) random
-   well-conditioned blocks, B=8, N=16, nb=200, k=4; (c) a lane with a
-   singular block gives non-finite output and no exception;
+   well-conditioned blocks, B=8, N=16, nb=200, k=4 (the device-memory
+   mode); (c) a lane with a singular block gives non-finite output and no
+   exception, in both memory modes; (d) every shape of a sweep that
+   crosses the kernel's tile, panel and memory-mode edges
+   (``ops.btb.EDGE_SHAPES``) agrees lane by lane, B=2. The lines of (a)
+   and (b) also give the factor's barrier phases as the code reckons them
+   (``_factor_barriers``);
 9. card against CPU, iterate level, under ``kkt="structured"``.
 
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
-bound. The last line of standard output is the result object. Run from
-the root of the repository::
+bound, at shape (a), and under a key that names shape (b) the same times
+at shape (b), which the main path does not launch. The last line of
+standard output is the result object. Run from the root of the
+repository::
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--phases 8]
+
+``--phases 8`` builds K1 and runs only its checks (about a minute): the
+loop to iterate on the kernel with.
 """
 
 import argparse
@@ -161,24 +171,6 @@ def _events_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def _dense_kkt(torch, D, L, Bm, C):
-    """The bordered block-tridiagonal matrix assembled dense, per lane."""
-    Bt, N, nb, _ = D.shape
-    k = Bm.shape[-1]
-    K = D.new_zeros((Bt, N * nb + k, N * nb + k))
-    for i in range(N):
-        s = slice(i * nb, (i + 1) * nb)
-        K[:, s, s] = D[:, i]
-        if i + 1 < N:
-            t = slice((i + 1) * nb, (i + 2) * nb)
-            K[:, t, s] = L[:, i]
-            K[:, s, t] = L[:, i].transpose(-1, -2)
-    K[:, :N * nb, N * nb:] = Bm.reshape(Bt, N * nb, k)
-    K[:, N * nb:, :N * nb] = Bm.reshape(Bt, N * nb, k).transpose(-1, -2)
-    K[:, N * nb:, N * nb:] = C
-    return K
-
-
 def _btb_work(Bt, N, nb, k, r):
     """(factor flops, factor bytes, solve flops, solve bytes) that one
     factor and one r-column solve need at these shapes (f64 values, int32
@@ -193,6 +185,64 @@ def _btb_work(Bt, N, nb, k, r):
     s_bytes = Bt * (8 * (2 * blk - nb * nb + 2 * N * nb * k + k * k +
                          2 * (N * nb + k) * r) + 4 * (N * nb + k))
     return f_flops, f_bytes, s_flops, s_bytes
+
+
+def _gemm_barriers(m, n, kk):
+    """Barriers of one gemm() call in csrc/btb.cu: one per (64 x 64 output
+    tile, 16-deep k-slice), then one."""
+    return -(-m // 64) * -(-n // 64) * -(-kk // 16) + 1
+
+
+def _lu_solve_barriers(n, w, stage_t, stage_x):
+    """Barriers of lu_solve(): the pivot copy and the swaps, then for each
+    32-row block of both sweeps its triangle (with its staging) and the
+    product with the rows beyond it."""
+    tri = 1 + (stage_t or stage_x) + stage_x
+    count = 2
+    for j0 in range(0, n, 32):
+        jw = min(32, n - j0)
+        count += tri + (_gemm_barriers(n - j0 - jw, w, jw)
+                        if j0 + jw < n else 0)
+        count += tri + (_gemm_barriers(j0, w, jw) if j0 > 0 else 0)
+    return count
+
+
+def _lu_factor_barriers(n, stage):
+    """Barriers of lu_factor(): per 32-column panel the panel (one barrier
+    when one warp factors it, up to 64 rows; one per column more when the
+    whole block does), its staging (two), the swaps, the block row's
+    triangle (with its staging) and the trailing product."""
+    count = 0
+    for p0 in range(0, n, 32):
+        pw, m = min(32, n - p0), n - p0
+        count += (1 if m <= 64 else 1 + pw) + 2 * stage + 1
+        if pw < m:
+            count += 1 + 2 * stage + _gemm_barriers(m - pw, m - pw, pw)
+    return count
+
+
+def _factor_barriers(N, nb, k, smem):
+    """Barrier phases (__syncthreads) that one lane of the factor kernel
+    passes at these shapes, as reckoned by hand from csrc/btb.cu's control
+    flow: the Schur recursion (transpose, the solve with S_{i-1}, the
+    product, the LU), the back sweep of T^{-1} B and the border's LU.
+    Nothing checks it against the kernel: an edit there must be copied
+    here."""
+    dev = not smem
+    w = nb + k
+    count = 0
+    for i in range(N):
+        if i == 0:
+            count += 1
+        else:
+            count += (2 * (-(-nb // 32)) ** 2 if dev else 0) + 1
+            count += _lu_solve_barriers(nb, w, dev, dev)
+            count += _gemm_barriers(nb, w, nb)
+        count += _lu_factor_barriers(nb, dev) + smem
+    if k == 0:
+        return count
+    count += N * (2 + _lu_solve_barriers(nb, k, True, False))
+    return count + 1 + _lu_factor_barriers(k, False)
 
 
 def _bound(flops, nbytes):
@@ -220,7 +270,7 @@ def _check_btb(torch, D, L, Bm, C, r, seed, reps):
     torch.cuda.synchronize()
     sol_k = torch.cat([xk.reshape(Bt, -1, r), wk], 1)
     sol_p = torch.cat([xp.reshape(Bt, -1, r), wp], 1)
-    K = _dense_kkt(torch, D, L, Bm, C)
+    K = plain.dense_kkt(D, L, Bm, C)
     rhs = torch.cat([rhs_T.reshape(Bt, -1, r), rhs_C], 1)
 
     def backward_err(sol):
@@ -254,9 +304,20 @@ def _check_btb(torch, D, L, Bm, C, r, seed, reps):
         torch, lambda: torch.linalg.lu_solve(lu[0][0], lu[0][1], rhs),
         max(1, reps // 10))
     f_flops, f_bytes, s_flops, s_bytes = _btb_work(Bt, N, nb, k, r)
+    out["factor_barrier_phases"] = _factor_barriers(
+        N, nb, k, k1.use_shared_memory(nb, k))
     out["factor_bound_ms"], out["factor_bound_by"] = _bound(f_flops, f_bytes)
     out["solve_bound_ms"], out["solve_bound_by"] = _bound(s_flops, s_bytes)
     return out
+
+
+def _kernel_times(r, part):
+    """The times of one K1 kernel ("factor" or "solve") in a _check_btb
+    result, under the kernels line's keys."""
+    return {"ms": r[f"{part}_ms"], "plain_ms": r[f"plain_{part}_ms"],
+            "bound_ms": r[f"{part}_bound_ms"],
+            "bound_by": r[f"{part}_bound_by"],
+            "library_ms": r[f"library_{part}_ms"]}
 
 
 def _capture_first_newton_blocks(torch, tr, opts, z0, Z0):
@@ -298,6 +359,33 @@ def _random_blocks(torch, Bt, N, nb, k, seed):
     Bm = 0.5 * rng.standard_normal((Bt, N, nb, k))
     C = rng.standard_normal((Bt, k, k)) + 4 * N * nb * np.eye(k)
     return t(D), t(L), t(Bm), t(C)
+
+
+def _sweep(torch):
+    """K1 against the plain version at every shape of EDGE_SHAPES, B=2: the
+    worst
+    per-lane relative error and the shapes that disagree or are not
+    finite."""
+    from opensim_moco_tpu_torch.ops import btb as k1
+    from opensim_moco_tpu_torch.solver import structured as plain
+
+    worst, bad = 0.0, []
+    for N, nb, k in k1.EDGE_SHAPES:
+        blocks = _random_blocks(torch, 2, N, nb, k, nb + 7 * N + k)
+        rng = np.random.default_rng(nb)
+        rhs_T = torch.as_tensor(rng.standard_normal((2, N, nb, 2)),
+                                device="cuda")
+        rhs_C = torch.as_tensor(rng.standard_normal((2, k, 2)), device="cuda")
+        xk, wk = k1.btb_solve(k1.btb_factor(*blocks), rhs_T, rhs_C)
+        xp, wp = plain.btb_solve(plain.btb_factor(*blocks), rhs_T, rhs_C)
+        sk = torch.cat([xk.reshape(2, -1), wk.reshape(2, -1)], 1)
+        sp = torch.cat([xp.reshape(2, -1), wp.reshape(2, -1)], 1)
+        err = _lane_rel_err(sk, sp)
+        worst = max(worst, err)
+        if not bool(torch.isfinite(sk).all()) or err > KERNEL_RTOL:
+            bad.append([N, nb, k, err])
+    return {"shapes": len(k1.EDGE_SHAPES), "max_lane_rel_err": worst,
+            "disagree": bad}
 
 
 def main():
@@ -465,43 +553,56 @@ def main():
             k1[name] = _check_btb(torch, *blk, r, seed, reps)
             print(f"phase 8{name[0]} K1 vs plain, {name}: "
                   + json.dumps(k1[name]), flush=True)
-        # (c) one singular lane: non-finite output, no exception
+        # (c) one singular lane: non-finite output, no exception, in the
+        # shared-memory (nb=34) and the device-memory (nb=200) mode
         from opensim_moco_tpu_torch.ops import btb as k1_ops
 
-        D, L, Bm, C = _random_blocks(torch, 2, 4, 34, 1, 4)
-        D[1, 2] = 0.0  # lane 1: D_2 = 0 and L_1 = 0 make S_2 = 0
-        L[1, 1] = 0.0
-        fac = k1_ops.btb_factor(D, L, Bm, C)
-        x, w = k1_ops.btb_solve(fac, torch.ones_like(D[..., 0]),
-                                torch.ones_like(C[..., 0]))
-        torch.cuda.synchronize()
-        sing = {"lane0_finite": bool(torch.isfinite(x[0]).all()),
+        sing = {}
+        for nb in (34, 200):
+            D, L, Bm, C = _random_blocks(torch, 2, 4, nb, 1, 4)
+            D[1, 2] = 0.0  # lane 1: D_2 = 0 and L_1 = 0 make S_2 = 0
+            L[1, 1] = 0.0
+            fac = k1_ops.btb_factor(D, L, Bm, C)
+            x, w = k1_ops.btb_solve(fac, torch.ones_like(D[..., 0]),
+                                    torch.ones_like(C[..., 0]))
+            torch.cuda.synchronize()
+            sing[f"nb{nb}"] = {
+                "shared_memory": k1_ops.use_shared_memory(nb, 1),
+                "lane0_finite": bool(torch.isfinite(x[0]).all()),
                 "lane1_finite": bool(torch.isfinite(x[1]).all())}
         print("phase 8c singular lane: " + json.dumps(sing), flush=True)
         k1["c_singular"] = sing
+        # (d) the sweep of ragged shapes
+        t0 = time.perf_counter()
+        k1["d_sweep"] = _sweep(torch)
+        k1["d_sweep"]["wall_s"] = time.perf_counter() - t0
+        print("phase 8d K1 vs plain, ragged shapes, B=2: "
+              + json.dumps(k1["d_sweep"]), flush=True)
         out["k1"] = k1
-        if not sing["lane0_finite"] or sing["lane1_finite"]:
+        if any(not v["lane0_finite"] or v["lane1_finite"]
+               for v in sing.values()):
             _fail("phase 8c: a singular block must give non-finite output "
                   "in its lane only")
-        for name, r in k1.items():
-            if name.startswith("c_"):
-                continue
+        if k1["d_sweep"]["disagree"]:
+            _fail("phase 8d: K1 and the plain version disagree at "
+                  f"{k1['d_sweep']['disagree']}")
+        for name in ("a_bench_newton", "b_random_nb200"):
+            r = k1[name]
             if not r["finite"] or r["max_lane_rel_err"] > KERNEL_RTOL:
                 _fail(f"phase 8 {name}: K1 and the plain version disagree")
-        a = k1["a_bench_newton"]
-        for kern, part in (("btb_factor", "factor"), ("btb_solve", "solve")):
+        a, b = k1["a_bench_newton"], k1["b_random_nb200"]
+        for kern, part, line in (("btb_factor", "factor", 337),
+                                 ("btb_solve", "solve", 367)):
             kernels.append({
                 "name": kern, "route": "cuda",
                 "source": "opensim_moco_tpu_torch/csrc/btb.cu",
-                "replaces": ("opensim_moco_tpu/solver/structured.py:337"
-                             if part == "factor" else
-                             "opensim_moco_tpu/solver/structured.py:367"),
+                "replaces": f"opensim_moco_tpu/solver/structured.py:{line}",
+                "shape": "B32_N25_nb34_k1" + ("_r3" if part == "solve"
+                                              else ""),
                 "launches": launches.get(kern, 0),
-                "max_abs_err": a["max_abs_err"],
-                "ms": a[f"{part}_ms"], "plain_ms": a[f"plain_{part}_ms"],
-                "bound_ms": a[f"{part}_bound_ms"],
-                "bound_by": a[f"{part}_bound_by"],
-                "library_ms": a[f"library_{part}_ms"]})
+                "max_abs_err": a["max_abs_err"], **_kernel_times(a, part),
+                "B8_N16_nb200_k4" + ("_r3" if part == "solve" else ""): {
+                    "max_abs_err": b["max_abs_err"], **_kernel_times(b, part)}})
 
     # ---- phase 9: card against CPU, iterate level, structured
     if 9 in phases:

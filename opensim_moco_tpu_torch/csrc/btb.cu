@@ -8,7 +8,7 @@
 //
 // What it computes, per lane (one thread block per lane):
 //   factor: S_0 = D_0, S_i = D_i - L_{i-1} S_{i-1}^{-1} L_{i-1}^T, each S_i
-//           LU-factored with partial pivoting (LAPACK getf2: first index of
+//           LU-factored with partial pivoting (LAPACK getrf: first index of
 //           the largest |entry|, whole-row swaps, 1-based pivots, a zero
 //           pivot left unscaled); then T^{-1} B by a forward and a back
 //           sweep, the border Schur complement C - sum_i B_i^T (T^{-1} B)_i
@@ -18,19 +18,51 @@
 // A singular or indefinite trial yields inf/NaN, never a fix-up: the IPM's
 // regularization loop reads a non-finite step as "raise delta".
 //
-// What bounds it: the recursion over N is sequential within a lane and
-// every step is a chain of small dependent triangular solves, so at the
-// bench's shapes (B=32, N=25, nb=34, k=1) it is latency-bound, far from
-// both the float64 FLOP bound and the byte bound.
-// What the design does about it: one launch per factor and one per solve
-// instead of about 5 N (factor) and 6 N (solve) small launches from
-// Python; the Schur block being formed and factored stays in shared memory
-// when two nb x nb blocks fit (nb up to about 115), otherwise the kernel
-// works in device memory (nb of a few hundred, gait2d), where the lane's
-// blocks stay in L2. Each elimination step of the LU and of the triangular
-// solves is one pass of the whole thread block over the trailing rows and
-// columns, ended by one barrier; the LU's pivot search is one warp's
-// shuffle reduction. wgmma/TMA tiling is later work.
+// What bounds the factor: the recursion over N is sequential within a
+// lane, and one thread block works on a lane. At the bench's shapes (B=32,
+// N=25, nb=34, k=1) it is bound by latency: its 1,038 barrier phases are
+// about 2 us apart, and the dependent chain of each LU panel's columns
+// (pivot search, then update) is the longest within them. At gait widths
+// (nb of a few hundred, B=8) the FP64 block products on the 8 busy SMs
+// weigh more.
+// What the factor's design does about it:
+//   - every block product (the Schur update S_i = D_i - L_{i-1} X, the
+//     LU's trailing updates, the off-diagonal blocks of the triangular
+//     solves) goes through one tiled routine, gemm(): 64 x 64 output
+//     tiles, a 4 x 4 register micro-tile per thread, k-slices of 16 loaded
+//     into registers while the previous one is multiplied and stored into
+//     two alternating shared-memory buffers with padded rows (one barrier
+//     a slice); operands by pointer and leading dimension;
+//   - each S_i is LU-factored right-looking, blocked by 32 columns: a
+//     panel's rows stay in place while it is factored (positions tracked
+//     per row, the next pivot's search riding on each column's update),
+//     by one warp without block barriers up to 64 rows and by the whole
+//     block above that; then the row swaps, the block row U12 and the
+//     trailing update by gemm();
+//   - the triangular solves are blocked by 32 rows: a diagonal triangle is
+//     solved with lanes over its rows and warps over the right-hand-side
+//     columns, each step a shuffle (no barrier); the rest is gemm();
+//   - T^{-1} B's forward sweep is folded into the recursion: step i solves
+//     S_{i-1}^{-1} [L_{i-1}^T | y_{i-1}] and one product gives both S_i and
+//     y_i = B_i - L_{i-1} S_{i-1}^{-1} y_{i-1}, stored in Tinv_B, where the
+//     back sweep (the only sweep left after the recursion) reads it;
+//   - no division or remainder by a runtime value in any inner loop (2-D
+//     thread indexing, constant shifts, reciprocals);
+//   - the memory mode is a template parameter, so that the compiler knows
+//     which pointers are shared memory. The Schur block and the
+//     right-hand sides X stay in shared memory while both fit (nb up to
+//     about 110), rows padded to an odd number of doubles; otherwise S
+//     lives in its slot of S_lu and X in a per-lane scratch in device
+//     memory (the lane's working set, about 1.6 MB at nb = 200, stays in
+//     L2), and panels, triangles and blocks of X are staged through shared
+//     memory. That staging (a panel of nb x 33 doubles) bounds the width:
+//     nb up to 738 for k up to 23 (btb_factor_smem_bytes against the 227
+//     KB a block may have); ops/btb.py raises above it.
+// Left for later: FP64 tensor cores (mma.sync m8n8k4, 67 TFLOP/s against
+// 34 on the CUDA cores) in gemm(); more than one thread block per lane
+// when B is small and nb large; a shorter per-column chain in the panels;
+// and a redesign of the solve kernel, which keeps its first design (one
+// block-wide barrier per elimination step).
 
 #include <cuda_runtime.h>
 
@@ -41,73 +73,587 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTile = 64;               // gemm output tile edge
+constexpr int kSlice = 16;              // gemm k-slice
+constexpr int kTilePad = kTile + 1;     // padded tile row (doubles)
+constexpr int kTileDoubles = 4 * kSlice * kTilePad;  // gemm's 2 x (A, B)
+constexpr int kTri = 32;                // triangle edge of the blocked solves
+
+// Doubles of the device-memory mode's panel buffer: the LU's panels (m x
+// 33), a 32-row block of the triangle solves' right-hand sides (32 x (nb +
+// k)), the back sweep's block (nb x k).
+__host__ __device__ constexpr size_t panel_doubles(int nb, int k) {
+  const size_t mx = nb > k ? nb : k;
+  const size_t a = mx * (kTri + 1), b = (size_t)kTri * (nb + k),
+               c = (size_t)nb * k;
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
 
 __device__ __forceinline__ double warp_sum(double v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   return v;  // complete in lane 0
 }
 
-// In-place LU with partial pivoting of the n x n row-major A; piv gets
-// 1-based pivot rows. Every thread of the block calls it.
-__device__ void lu_factor_block(double* A, int n, int* piv) {
-  __shared__ int s_pivot;
+// ---- the factor's building blocks
+
+// out(r, c) = acc: C -= A B into a matrix of leading dimension ldc.
+struct SubEpi {
+  double* C;
+  int ldc;
+  __device__ void operator()(int r, int c, double acc) const {
+    C[(size_t)r * ldc + c] -= acc;
+  }
+};
+
+// The Schur step's product L_{i-1} [X | Z]: columns below nb give
+// S_i = D_i - L X, the k columns above give y_i = B_i - L Z.
+struct SchurEpi {
+  double* S;
+  int lds;
+  const double* D;
+  double* Y;
+  const double* Bi;
+  int nb, k;
+  __device__ void operator()(int r, int c, double acc) const {
+    if (c < nb)
+      S[(size_t)r * lds + c] = D[(size_t)r * nb + c] - acc;
+    else
+      Y[(size_t)r * k + c - nb] = Bi[(size_t)r * k + c - nb] - acc;
+  }
+};
+
+// epi(r, c, (A B)[r][c]) for every element of the m x n product (kk >= 1),
+// A (m x kk) at A[r * lda + j], B (kk x n) at B[j * ldb + c]. Each 64 x 64
+// output tile takes the whole block: thread (ty, tx) = (tid / 16, tid %
+// 16) keeps the 4 x 4 micro-tile of rows ty + 16 i and columns tx + 16 j in
+// registers. The k-slices of 16 of both operands go through registers (the
+// next slice is loaded while the current one is multiplied) into two
+// alternating shared-memory buffers (`tiles`, kTileDoubles), so each slice
+// costs one barrier; ragged edges read as zeros. The output must not
+// overlap the operands. Every thread calls it; it ends with a barrier.
+template <class Epi>
+__device__ __forceinline__ void gemm(int m, int n, int kk, const double* A,
+                                     int lda, const double* B, int ldb,
+                                     double* tiles, const Epi& epi) {
+  constexpr int kLoads = kTile * kSlice / kThreads;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  for (int k = 0; k < n; ++k) {
-    if (tid < 32) {
-      double best = -1.0;
-      int bi = n;
-      for (int r = k + lane; r < n; r += 32) {
-        const double v = fabs(A[(size_t)r * n + k]);
-        if (v > best) {
-          best = v;
-          bi = r;
+  const int tx = tid & 15, ty = tid >> 4;
+  double ra[kLoads], rb[kLoads];
+  auto load = [&](int r0, int c0, int j0) {
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int e = tid + q * kThreads;
+      // both coalesced: A along j, B along c
+      const int gr = r0 + (e >> 4), gj = j0 + (e & (kSlice - 1));
+      ra[q] = (gr < m && gj < kk) ? A[(size_t)gr * lda + gj] : 0.0;
+      const int gc = c0 + (e & (kTile - 1)), gb = j0 + (e >> 6);
+      rb[q] = (gc < n && gb < kk) ? B[(size_t)gb * ldb + gc] : 0.0;
+    }
+  };
+  double acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int l = 0; l < 4; ++l) acc[i][l] = 0.0;
+  int r0 = 0, c0 = 0, j0 = 0, buf = 0;
+  load(r0, c0, j0);
+  while (r0 < m) {
+    double* As = tiles + buf * 2 * kSlice * kTilePad;  // As[j][r]
+    double* Bs = As + kSlice * kTilePad;               // Bs[j][c]
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int e = tid + q * kThreads;
+      As[(e & (kSlice - 1)) * kTilePad + (e >> 4)] = ra[q];
+      Bs[(e >> 6) * kTilePad + (e & (kTile - 1))] = rb[q];
+    }
+    __syncthreads();
+    // the next (tile, slice), loaded while this one is multiplied
+    int nr0 = r0, nc0 = c0, nj0 = j0 + kSlice;
+    const bool tile_done = nj0 >= kk;
+    if (tile_done) {
+      nj0 = 0;
+      nc0 += kTile;
+      if (nc0 >= n) {
+        nc0 = 0;
+        nr0 += kTile;
+      }
+    }
+    if (nr0 < m) load(nr0, nc0, nj0);
+#pragma unroll
+    for (int j = 0; j < kSlice; ++j) {
+      double a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[j * kTilePad + ty + 16 * i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) b[i] = Bs[j * kTilePad + tx + 16 * i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int l = 0; l < 4; ++l) acc[i][l] = fma(a[i], b[l], acc[i][l]);
+    }
+    if (tile_done) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + ty + 16 * i;
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          const int c = c0 + tx + 16 * l;
+          if (r < m && c < n) epi(r, c, acc[i][l]);
+          acc[i][l] = 0.0;
         }
       }
-      for (int o = 16; o > 0; o >>= 1) {
-        const double ov = __shfl_down_sync(kFull, best, o);
-        const int oi = __shfl_down_sync(kFull, bi, o);
-        if (ov > best || (ov == best && oi < bi)) {
-          best = ov;
-          bi = oi;
+    }
+    r0 = nr0;
+    c0 = nc0;
+    j0 = nj0;
+    buf ^= 1;
+  }
+  __syncthreads();
+}
+
+// dst (rows x cols, leading dimension ldd) <- src (leading dimension lds):
+// warps over rows, lanes over columns.
+__device__ __forceinline__ void copy_block(double* dst, int ldd,
+                                           const double* src, int lds, int rows,
+                                           int cols) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < rows; r += kWarps)
+    for (int c = lane; c < cols; c += 32)
+      dst[(size_t)r * ldd + c] = src[(size_t)r * lds + c];
+}
+
+// X (jw x w, leading dimension ldx) <- T^{-1} X for the jw x jw (jw <=
+// 32) diagonal triangle T (leading dimension ldt) of an LU: unit lower, or
+// upper with its diagonal (each lane holds the reciprocal of its row's).
+// Lane r of a warp holds row r of kCols columns at a time (columns warp +
+// 8 q); each elimination step broadcasts the finished row by a shuffle, so
+// the triangle takes no barrier. With kStageT (kStageX), T (X) lies in
+// device memory and is first copied to `t_stage` (32 x 33 doubles of
+// shared memory; `x_stage`, 32 x w doubles), and X is copied back. The
+// caller ends the phase with a barrier.
+template <bool Upper, bool kStageT, bool kStageX>
+__device__ __forceinline__ void trsm_diag(const double* T, int ldt, int jw,
+                                          double* X, int ldx, int w,
+                                          double* t_stage, double* x_stage) {
+  constexpr int kCols = 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double* Xg = X;
+  const int ldg = ldx;
+  if (kStageT) {
+    copy_block(t_stage, kTri + 1, T, ldt, jw, jw);
+    T = t_stage;
+    ldt = kTri + 1;
+  }
+  if (kStageX) {
+    copy_block(x_stage, w, X, ldx, jw, w);
+    X = x_stage;
+    ldx = w;
+  }
+  if (kStageT || kStageX) __syncthreads();
+  const bool row_in = lane < jw;
+  const double rdiag =
+      Upper && row_in ? 1.0 / T[(size_t)lane * ldt + lane] : 0.0;
+  for (int c0 = warp; c0 < w; c0 += kCols * kWarps) {
+    double x[kCols];
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+      const int c = c0 + q * kWarps;
+      x[q] = row_in && c < w ? X[(size_t)lane * ldx + c] : 0.0;
+    }
+    if (Upper) {
+#pragma unroll 4
+      for (int j = jw - 1; j >= 0; --j) {
+        const double t = lane < j ? T[(size_t)lane * ldt + j] : 0.0;
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          if (c0 + q * kWarps >= w) break;  // warp-uniform
+          if (lane == j) x[q] *= rdiag;
+          const double xj = __shfl_sync(kFull, x[q], j);
+          if (lane < j) x[q] -= t * xj;
         }
       }
-      if (lane == 0) {
-        const int p = bi < n ? bi : k;  // an all-NaN column keeps row k
-        s_pivot = p;
-        piv[k] = p + 1;
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < jw; ++j) {
+        const double t = lane > j && row_in ? T[(size_t)lane * ldt + j] : 0.0;
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) {
+          if (c0 + q * kWarps >= w) break;  // warp-uniform
+          const double xj = __shfl_sync(kFull, x[q], j);
+          if (lane > j) x[q] -= t * xj;
+        }
       }
     }
-    __syncthreads();
-    const int p = s_pivot;
-    if (p != k) {
-      for (int c = tid; c < n; c += kThreads) {
-        const double t = A[(size_t)k * n + c];
-        A[(size_t)k * n + c] = A[(size_t)p * n + c];
-        A[(size_t)p * n + c] = t;
-      }
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+      const int c = c0 + q * kWarps;
+      if (row_in && c < w) X[(size_t)lane * ldx + c] = x[q];
     }
+  }
+  if (kStageX) {
     __syncthreads();
-    const double akk = A[(size_t)k * n + k];
-    if (akk != 0.0) {
-      for (int r = k + 1 + tid; r < n; r += kThreads) A[(size_t)r * n + k] /= akk;
-    }
-    __syncthreads();
-    const int m = n - k - 1;
-    for (int e = tid; e < m * m; e += kThreads) {
-      const int r = k + 1 + e / m;
-      const int c = k + 1 + e % m;
-      A[(size_t)r * n + c] -= A[(size_t)r * n + k] * A[(size_t)k * n + c];
-    }
-    __syncthreads();
+    copy_block(Xg, ldg, x_stage, w, jw, w);
   }
 }
 
+// X (n x w, leading dimension ldx) <- A^{-1} X for A = P L U as lu_factor
+// stores it (leading dimension lda, 1-based pivots piv, copied to piv_s, n
+// ints of shared memory): the row swaps (one thread per column), then
+// forward and back substitution blocked by 32 rows, diagonal triangles by
+// trsm_diag (kStageT, kStageX, t_stage and x_stage as there) and the rest
+// by gemm. Every thread calls it; it ends with a barrier.
+template <bool kStageT, bool kStageX>
+__device__ __forceinline__ void lu_solve(const double* LU, int lda,
+                                         const int* piv, int n, double* X,
+                                         int ldx, int w, double* tiles,
+                                         double* t_stage, double* x_stage,
+                                         int* piv_s) {
+  for (int j = threadIdx.x; j < n; j += kThreads) piv_s[j] = piv[j] - 1;
+  __syncthreads();
+  for (int c = threadIdx.x; c < w; c += kThreads) {
+    for (int j = 0; j < n; ++j) {
+      const int p = piv_s[j];
+      if (p != j) {
+        const double t = X[(size_t)j * ldx + c];
+        X[(size_t)j * ldx + c] = X[(size_t)p * ldx + c];
+        X[(size_t)p * ldx + c] = t;
+      }
+    }
+  }
+  __syncthreads();
+  for (int j0 = 0; j0 < n; j0 += kTri) {
+    const int jw = min(kTri, n - j0);
+    trsm_diag<false, kStageT, kStageX>(LU + (size_t)j0 * lda + j0, lda, jw,
+                     X + (size_t)j0 * ldx, ldx, w, t_stage, x_stage);
+    __syncthreads();
+    if (j0 + jw < n)
+      gemm(n - j0 - jw, w, jw, LU + (size_t)(j0 + jw) * lda + j0, lda,
+           X + (size_t)j0 * ldx, ldx, tiles,
+           SubEpi{X + (size_t)(j0 + jw) * ldx, ldx});
+  }
+  for (int j0 = (n - 1) / kTri * kTri; j0 >= 0; j0 -= kTri) {
+    const int jw = min(kTri, n - j0);
+    trsm_diag<true, kStageT, kStageX>(LU + (size_t)j0 * lda + j0, lda, jw,
+                    X + (size_t)j0 * ldx, ldx, w, t_stage, x_stage);
+    __syncthreads();
+    if (j0 > 0)
+      gemm(j0, w, jw, LU + j0, lda, X + (size_t)j0 * ldx, ldx, tiles,
+           SubEpi{X, ldx});
+  }
+}
+
+// The largest |entry| first, the smallest position on a tie; NaN ranks
+// below every number, so an all-NaN column keeps the row at its position.
+struct Pivot {
+  double v;
+  int pos, row;
+  __device__ void offer(double x, int p, int r) {
+    double a = fabs(x);
+    if (a != a) a = -0.5;
+    if (a > v || (a == v && p < pos)) {
+      v = a;
+      pos = p;
+      row = r;
+    }
+  }
+  __device__ void offer(const Pivot& o) {
+    if (o.v > v || (o.v == v && o.pos < pos)) *this = o;
+  }
+  __device__ void warp_reduce() {  // the warp's best, in every lane
+    for (int o = 16; o > 0; o >>= 1) {
+      Pivot other;
+      other.v = __shfl_xor_sync(kFull, v, o);
+      other.pos = __shfl_xor_sync(kFull, pos, o);
+      other.row = __shfl_xor_sync(kFull, row, o);
+      offer(other);
+    }
+  }
+};
+
+__device__ __forceinline__ Pivot no_pivot() { return Pivot{-1.0, 1 << 30, -1}; }
+
+// Partial-pivoting LU of the m x pw panel P (leading dimension ldp, pw <=
+// 32) whose first row and column are at position p0 of the whole matrix;
+// piv[j] gets the 1-based pivot position of column j, piv_s[j] (shared
+// memory) the 0-based one. The rows stay where they are: each row's
+// position is kept in pos[r] by the thread that owns the row, each
+// column's pivot row is read in place (into registers: read through P,
+// it would wait for every store to the updated rows), and the other
+// unpivoted rows are scaled and updated by their owners. The search for
+// the next column's pivot rides on that update. The caller applies the
+// swaps. Two layouts, by the panel's height (both measured on the card):
+// up to 64 rows one warp owns them (rows lane + 32 q) and a column costs
+// a warp reduction and no block barrier; above that every thread owns
+// rows tid + 256 q and a column costs a warp reduction, one candidate per
+// warp in shared memory and one barrier. Every thread calls it; it ends
+// with a barrier.
+__device__ __forceinline__ void lu_panel(double* P, int ldp, int m, int pw,
+                                         int p0, int* piv, int* piv_s,
+                                         int* pos) {
+  __shared__ Pivot s_cand[2][kWarps];
+  const bool one_warp = m <= 64;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nthreads = one_warp ? 32 : kThreads;
+  if (one_warp && warp > 0) {
+    __syncthreads();
+    return;
+  }
+  Pivot cand = no_pivot();
+  for (int r = tid; r < m; r += nthreads) {
+    pos[r] = r;
+    cand.offer(P[(size_t)r * ldp], r, r);
+  }
+  cand.warp_reduce();
+  if (!one_warp) {
+    if (lane == 0) s_cand[0][warp] = cand;
+    __syncthreads();
+  }
+  for (int j = 0; j < pw; ++j) {
+    const int cur = j & 1;
+    Pivot pv = cand;
+    if (!one_warp) {
+      Pivot c[kWarps];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) c[w] = s_cand[cur][w];
+      pv = c[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) pv.offer(c[w]);
+    }
+    if (tid == 0) {
+      piv[j] = p0 + pv.pos + 1;
+      piv_s[j] = p0 + pv.pos;
+    }
+    if (one_warp) __syncwarp();  // the pivot row's last update is seen
+    // the multipliers as LAPACK getf2 forms them, a * (1 / akk); since
+    // |a| <= |akk|, a subnormal pivot and its column are first scaled by
+    // 2^64, which keeps the reciprocal finite and needs no division
+    const double* u = P + (size_t)pv.row * ldp;
+    const double akk = u[j];
+    const double scale =
+        fabs(akk) < 2.2250738585072014e-308 ? 18446744073709551616.0 : 1.0;
+    const double rinv = __drcp_rn(akk * scale);
+    double ur[kTri];
+#pragma unroll
+    for (int c = 0; c < kTri; ++c) ur[c] = c > j && c < pw ? u[c] : 0.0;
+    cand = no_pivot();
+    for (int r = tid; r < m; r += nthreads) {
+      const int pr = pos[r];
+      if (r == pv.row) {
+        pos[r] = j;
+        continue;
+      }
+      if (pr < j) continue;  // pivoted in an earlier column
+      const int np = pr == j ? pv.pos : pr;  // the row at position j moves
+      pos[r] = np;
+      double* row = P + (size_t)r * ldp;
+      double l = row[j];
+      if (akk != 0.0) l = l * scale * rinv;
+      row[j] = l;
+#pragma unroll
+      for (int c = 1; c < kTri; ++c)
+        if (c > j && c < pw) row[c] -= l * ur[c];
+      if (j + 1 < pw) cand.offer(row[j + 1], np, r);
+    }
+    cand.warp_reduce();
+    if (!one_warp) {
+      if (lane == 0) s_cand[cur ^ 1][warp] = cand;
+      __syncthreads();
+    }
+  }
+  if (one_warp) __syncthreads();
+}
+
+// In-place LU with partial pivoting (LAPACK getrf) of the n x n matrix A
+// (leading dimension lda), right-looking and blocked by 32 columns: each
+// panel by lu_panel, its row swaps applied across the whole rows (one
+// thread per column), the block row U12 by trsm_diag and the trailing
+// update A22 -= L21 U12 by gemm. With kStage (A in device memory) each
+// panel is staged through `panel` (33 doubles a row), which then also
+// stages U12, and the triangle goes through `tiles`. piv gets 1-based
+// pivot rows; pos holds n + 32 ints (row positions, then the panel's
+// pivots). Every thread calls it; it ends with a barrier.
+template <bool kStage>
+__device__ __forceinline__ void lu_factor(double* A, int lda, int n, int* piv,
+                                          int* pos, double* panel,
+                                          double* tiles) {
+  for (int p0 = 0; p0 < n; p0 += kTri) {
+    const int pw = min(kTri, n - p0), m = n - p0;
+    double* A11 = A + (size_t)p0 * lda + p0;
+    if (kStage) {
+      copy_block(panel, kTri + 1, A11, lda, m, pw);
+      __syncthreads();
+      lu_panel(panel, kTri + 1, m, pw, p0, piv + p0, pos + n, pos);
+      copy_block(A11, lda, panel, kTri + 1, m, pw);
+      __syncthreads();
+    } else {
+      lu_panel(A11, lda, m, pw, p0, piv + p0, pos + n, pos);
+    }
+    // the panel's rows are still where they were: swap whole rows in order
+    for (int c = threadIdx.x; c < n; c += kThreads) {
+      for (int j = p0; j < p0 + pw; ++j) {
+        const int p = pos[n + j - p0];
+        if (p != j) {
+          const double t = A[(size_t)j * lda + c];
+          A[(size_t)j * lda + c] = A[(size_t)p * lda + c];
+          A[(size_t)p * lda + c] = t;
+        }
+      }
+    }
+    __syncthreads();
+    if (pw < m) {
+      trsm_diag<false, kStage, kStage>(A11, lda, pw, A11 + pw, lda, m - pw,
+                                       tiles, panel);
+      __syncthreads();
+      gemm(m - pw, m - pw, pw, A11 + (size_t)pw * lda, lda, A11 + pw, lda,
+           tiles, SubEpi{A11 + (size_t)pw * lda + pw, lda});
+    }
+  }
+}
+
+// X[:, :n] (leading dimension ldx) <- L^T for the n x n row-major L. Into
+// shared memory directly (reads coalesced, odd ldx keeps the column writes
+// free of bank conflicts); into device memory through a 32 x 33 tile in
+// `tiles`, so that both sides are coalesced.
+template <bool kShared>
+__device__ __forceinline__ void transpose_in(double* X, int ldx,
+                                             const double* L, int n,
+                                             double* tiles) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (kShared) {
+    for (int c = warp; c < n; c += kWarps)
+      for (int r = lane; r < n; r += 32)
+        X[(size_t)r * ldx + c] = L[(size_t)c * n + r];
+    return;
+  }
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    for (int r0 = 0; r0 < n; r0 += 32) {
+      for (int c = warp; c < 32; c += kWarps)
+        if (c0 + c < n && r0 + lane < n)
+          tiles[c * 33 + lane] = L[(size_t)(c0 + c) * n + r0 + lane];
+      __syncthreads();
+      for (int r = warp; r < 32; r += kWarps)
+        if (r0 + r < n && c0 + lane < n)
+          X[(size_t)(r0 + r) * ldx + c0 + lane] = tiles[lane * 33 + r];
+      __syncthreads();
+    }
+  }
+}
+
+// kSmem: the shared-memory mode (a template parameter, so that the
+// compiler knows each pointer's memory and emits shared-memory loads).
+// (__launch_bounds__'s 1: at most one block per SM, so that ptxas does not
+// cap the registers at 128 to fit two, which spills.)
+template <bool kSmem>
+__global__ void __launch_bounds__(kThreads, 1)
+btb_factor_kernel(const double* __restrict__ D, const double* __restrict__ L,
+                  const double* __restrict__ Bm, const double* __restrict__ C,
+                  double* S_lu, int* S_piv, double* Tinv_B, double* Sb_lu,
+                  int* Sb_piv, double* scratch, int N, int nb, int k) {
+  extern __shared__ double smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t b = blockIdx.x;
+  const size_t bsz = (size_t)nb * nb;
+  const int w = nb + k;  // columns of [L^T | y]
+  D += b * N * bsz;
+  L += b * (N - 1) * bsz;
+  Bm += b * N * nb * k;
+  C += b * k * k;
+  S_lu += b * N * bsz;
+  S_piv += b * N * nb;
+  Tinv_B += b * N * nb * k;
+  Sb_lu += b * k * k;
+  Sb_piv += b * k;
+
+  // shared memory (btb_factor_smem_bytes): gemm's tiles; then either Sw,
+  // the Schur block being formed and factored, and X, S_{i-1}^{-1}
+  // [L_{i-1}^T | y_{i-1}], with odd leading dimensions (shared-memory mode)
+  // or `panel` (device-memory mode: S in S_lu, X in scratch), the LU's
+  // panel buffer, which also stages the triangle solves' blocks of X; then
+  // the LU's row positions. xs holds the back sweep's block of T^{-1} B.
+  double* tiles = smem;
+  const int lds = kSmem ? (nb | 1) : nb;
+  const int ldx = kSmem ? (w | 1) : w;
+  double* Sw = smem + kTileDoubles;
+  double* X = kSmem ? Sw + (size_t)nb * lds : scratch + b * nb * w;
+  double* panel = Sw;  // device-memory mode only
+  int* pos = reinterpret_cast<int*>(
+      kSmem ? X + (size_t)nb * ldx : panel + panel_doubles(nb, k));
+  double* xs = kSmem ? X : panel;
+
+  for (int i = 0; i < N; ++i) {
+    double* Sg = S_lu + i * bsz;
+    double* S = kSmem ? Sw : Sg;
+    const double* Di = D + i * bsz;
+    double* Yi = Tinv_B + (size_t)i * nb * k;
+    if (i == 0) {
+      copy_block(S, lds, Di, nb, nb, nb);
+      copy_block(Yi, k, Bm, k, nb, k);
+      __syncthreads();
+    } else {
+      const double* Lp = L + (i - 1) * bsz;
+      const double* P = kSmem ? Sw : S_lu + (i - 1) * bsz;
+      transpose_in<kSmem>(X, ldx, Lp, nb, tiles);
+      copy_block(X + nb, ldx, Yi - (size_t)nb * k, k, nb, k);
+      __syncthreads();
+      lu_solve<!kSmem, !kSmem>(P, lds, S_piv + (size_t)(i - 1) * nb, nb, X,
+                               ldx, w, tiles, tiles, panel, pos);
+      // in shared-memory mode S overwrites P, which lu_solve has finished
+      gemm(nb, w, nb, Lp, nb, X, ldx, tiles,
+           SchurEpi{S, lds, Di, Yi, Bm + (size_t)i * nb * k, nb, k});
+    }
+    lu_factor<!kSmem>(S, lds, nb, S_piv + (size_t)i * nb, pos, panel, tiles);
+    if (kSmem) {
+      copy_block(Sg, nb, S, lds, nb, nb);
+      __syncthreads();
+    }
+  }
+  if (k == 0) return;
+
+  // back sweep: x_i = S_i^{-1} (y_i - L_i^T x_{i+1}), in xs, then to Tinv_B;
+  // L_i^T x_{i+1} (k columns) one output row per thread, L read coalesced
+  for (int i = N - 1; i >= 0; --i) {
+    double* xi = Tinv_B + (size_t)i * nb * k;
+    const double* Li = L + i * bsz;
+    const double* xn = xi + (size_t)nb * k;
+    for (int r = tid; r < nb; r += kThreads) {
+      for (int q = 0; q < k; ++q) {
+        double acc = 0.0;
+        if (i + 1 < N)
+          for (int j = 0; j < nb; ++j)
+            acc = fma(Li[(size_t)j * nb + r], xn[(size_t)j * k + q], acc);
+        xs[(size_t)r * k + q] = xi[(size_t)r * k + q] - acc;
+      }
+    }
+    __syncthreads();
+    lu_solve<true, false>(S_lu + i * bsz, nb, S_piv + (size_t)i * nb, nb, xs,
+                          k, k, tiles, tiles, nullptr, pos);
+    copy_block(xi, k, xs, k, nb, k);
+    __syncthreads();
+  }
+  for (int p = warp; p < k; p += kWarps) {  // C - sum_i B_i^T (T^-1 B)_i
+    for (int q = 0; q < k; ++q) {
+      double s = 0.0;
+      for (int t = lane; t < N * nb; t += 32)
+        s += Bm[(size_t)t * k + p] * Tinv_B[(size_t)t * k + q];
+      s = warp_sum(s);
+      if (lane == 0) Sb_lu[p * k + q] = C[p * k + q] - s;
+    }
+  }
+  __syncthreads();
+  lu_factor<false>(Sb_lu, k, k, Sb_piv, pos, nullptr, tiles);  // in place
+}
+
+// ---- the solve kernel (one block-wide barrier per elimination step)
+
 // X (n x r, row-major, leading dimension r) <- A^{-1} X for A = P L U
-// stored by lu_factor_block: the row swaps (one thread per column), then
-// column-oriented substitutions (as reference LAPACK's trsm), each step
-// one axpy over the remaining rows and all r columns by the whole block.
-// Every thread calls it.
+// stored by lu_factor (leading dimension n): the row swaps (one thread per
+// column), then column-oriented substitutions (as reference LAPACK's trsm),
+// each step one axpy over the remaining rows and all r columns by the whole
+// block. Every thread calls it.
 __device__ void lu_solve_block(const double* LU, const int* piv, int n,
                                double* X, int r) {
   const int tid = threadIdx.x;
@@ -147,7 +693,7 @@ __device__ void lu_solve_block(const double* LU, const int* piv, int n,
 
 // X (N, nb, r) <- T^{-1} X with the stored block factors. tmp (nb*r,
 // shared memory) holds the block under solution, so the triangular solves
-// work in shared memory whatever mode the caller is in.
+// work in shared memory.
 __device__ void t_solve(const double* S_lu, const int* S_piv, const double* L,
                         int N, int nb, double* X, int r, double* tmp) {
   const int tid = threadIdx.x;
@@ -188,79 +734,6 @@ __device__ void t_solve(const double* S_lu, const int* S_piv, const double* L,
     for (int e = tid; e < nr; e += kThreads) xi[e] = tmp[e];
     __syncthreads();
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-btb_factor_kernel(const double* __restrict__ D, const double* __restrict__ L,
-                  const double* __restrict__ Bm, const double* __restrict__ C,
-                  double* S_lu, int* S_piv, double* Tinv_B, double* Sb_lu,
-                  int* Sb_piv, double* scratch, int N, int nb, int k,
-                  int use_smem) {
-  extern __shared__ double smem[];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const size_t bsz = (size_t)nb * nb;
-  D += b * N * bsz;
-  L += b * (N - 1) * bsz;
-  Bm += b * N * nb * k;
-  C += b * k * k;
-  S_lu += b * N * bsz;
-  S_piv += b * N * nb;
-  Tinv_B += b * N * nb * k;
-  Sb_lu += b * k * k;
-  Sb_piv += b * k;
-
-  // X: the nb x nb right-hand sides S_{i-1}^{-1} L_{i-1}^T; Sw: the Schur
-  // block being formed and factored (shared-memory mode only)
-  double* X = use_smem ? smem : scratch + b * bsz;
-  double* Sw = use_smem ? smem + bsz : nullptr;
-  double* tmp = use_smem ? smem + 2 * bsz : smem;
-
-  for (int i = 0; i < N; ++i) {
-    double* Sg = S_lu + i * bsz;
-    double* S = use_smem ? Sw : Sg;
-    const double* Di = D + i * bsz;
-    if (i == 0) {
-      for (size_t e = tid; e < bsz; e += kThreads) S[e] = Di[e];
-    } else {
-      const double* Lp = L + (i - 1) * bsz;
-      const double* P = use_smem ? Sw : S_lu + (i - 1) * bsz;
-      for (size_t e = tid; e < bsz; e += kThreads) X[e] = Lp[(e % nb) * nb + e / nb];
-      __syncthreads();
-      lu_solve_block(P, S_piv + (size_t)(i - 1) * nb, nb, X, nb);
-      // S_i = D_i - L_{i-1} X; in shared-memory mode S overwrites P, which
-      // lu_solve_block has finished reading
-      for (size_t e = tid; e < bsz; e += kThreads) {
-        const size_t row = e / nb, c = e % nb;
-        double acc = 0.0;
-        for (int j = 0; j < nb; ++j) acc += Lp[row * nb + j] * X[(size_t)j * nb + c];
-        S[e] = Di[e] - acc;
-      }
-    }
-    __syncthreads();
-    lu_factor_block(S, nb, S_piv + (size_t)i * nb);
-    if (use_smem) {
-      for (size_t e = tid; e < bsz; e += kThreads) Sg[e] = S[e];
-      __syncthreads();
-    }
-  }
-  if (k == 0) return;
-
-  const int nk = N * nb * k;
-  for (int e = tid; e < nk; e += kThreads) Tinv_B[e] = Bm[e];
-  __syncthreads();
-  t_solve(S_lu, S_piv, L, N, nb, Tinv_B, k, tmp);
-  for (int e = warp; e < k * k; e += kWarps) {  // C - sum_i B_i^T (T^-1 B)_i
-    const int p = e / k, q = e % k;
-    double s = 0.0;
-    for (int t = lane; t < N * nb; t += 32) s += Bm[(size_t)t * k + p] * Tinv_B[(size_t)t * k + q];
-    s = warp_sum(s);
-    if (lane == 0) Sb_lu[e] = C[e] - s;
-  }
-  __syncthreads();
-  lu_factor_block(Sb_lu, k, Sb_piv);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -316,20 +789,31 @@ btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
 
 extern "C" {
 
+// Shared memory (bytes) the factor asks for: gemm's tiles; the Schur
+// block and the right-hand sides X with odd leading dimensions when
+// use_smem, else the panel buffer; the LU's row positions and pivots.
+size_t btb_factor_smem_bytes(int nb, int k, int use_smem) {
+  const size_t mx = nb > k ? nb : k;
+  const size_t blocks = use_smem
+      ? (size_t)nb * (nb | 1) + (size_t)nb * ((nb + k) | 1)
+      : panel_doubles(nb, k);
+  return sizeof(double) * (kTileDoubles + blocks) + sizeof(int) * (mx + kTri);
+}
+
 // Both entry points launch on `stream` and return the cudaError_t of the
-// launch (0 on success); they neither allocate nor synchronise.
+// launch (0 on success); they neither allocate nor synchronise. scratch
+// holds batch * nb * (nb + k) doubles when use_smem is 0.
 int btb_factor_f64(const double* D, const double* L, const double* Bm,
                    const double* C, double* S_lu, int* S_piv, double* Tinv_B,
                    double* Sb_lu, int* Sb_piv, double* scratch, int batch,
                    int N, int nb, int k, int use_smem, void* stream) {
-  const size_t bsz = (size_t)nb * nb;
-  const size_t smem = sizeof(double) * ((use_smem ? 2 * bsz : 0) + (size_t)nb * k);
+  const size_t smem = btb_factor_smem_bytes(nb, k, use_smem);
+  auto kernel = use_smem ? btb_factor_kernel<true> : btb_factor_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      btb_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  btb_factor_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      D, L, Bm, C, S_lu, S_piv, Tinv_B, Sb_lu, Sb_piv, scratch, N, nb, k,
-      use_smem);
+  kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+      D, L, Bm, C, S_lu, S_piv, Tinv_B, Sb_lu, Sb_piv, scratch, N, nb, k);
   return (int)cudaGetLastError();
 }
 

@@ -26,7 +26,21 @@ from ..solver.structured import btb_solve as btb_solve_plain
 from ._build import load
 
 LAUNCHES = {"btb_factor": 0, "btb_solve": 0}
-SMEM_LIMIT = 200 * 1024  # bytes of shared memory the factor may ask for
+# bytes of dynamic shared memory the factor may ask for: the 227 KB a
+# block may have on sm_90, less 1 KB for its static shared memory
+SMEM_LIMIT = 232448 - 1024
+# the widest block the factor takes (for k <= 23; less for wider borders):
+# its device-memory mode stages a panel of nb x 33 doubles in shared memory
+MAX_NB = 738
+# (N, nb, k) that cross the factor's edges: 32-row triangles and 32-column
+# panels (31-33, 63-65; 64 rows is also where a panel passes from one warp
+# to the whole block), 64-wide product tiles, the bound between its shared-
+# and device-memory modes (nb 109-112 for k = 4..0; 115, 116 and 200 in
+# device memory), N = 1 (no L block) and a border of 0
+EDGE_NBS = (1, 5, 31, 32, 33, 34, 63, 64, 65, 109, 110, 111, 112, 115, 116,
+            200)
+EDGE_SHAPES = [(N, nb, k) for N in (1, 2, 16) for nb in EDGE_NBS
+               for k in (0, 1, 4)]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -38,6 +52,8 @@ def _lib():
         lib.btb_factor_f64.restype = _I
         lib.btb_solve_f64.argtypes = [_P] * 11 + [_I] * 5 + [_P]
         lib.btb_solve_f64.restype = _I
+        lib.btb_factor_smem_bytes.argtypes = [_I] * 3
+        lib.btb_factor_smem_bytes.restype = ctypes.c_size_t
         lib.btb_error_string.argtypes = [_I]
         lib.btb_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -63,8 +79,9 @@ def _raise_on(lib, rc, what):
 
 
 def use_shared_memory(nb, k):
-    """Whether the factor keeps its working blocks in shared memory."""
-    return 8 * (2 * nb * nb + nb * k) <= SMEM_LIMIT
+    """Whether the factor keeps its working blocks (the Schur block and the
+    nb x (nb + k) right-hand sides) in shared memory."""
+    return _lib().btb_factor_smem_bytes(nb, k, 1) <= SMEM_LIMIT
 
 
 def btb_factor(D, L, B, C) -> BTBFac:
@@ -81,13 +98,16 @@ def btb_factor(D, L, B, C) -> BTBFac:
     if Bt == 0 or N < 1 or nb == 0:
         raise ValueError(f"btb_factor: empty problem {tuple(D.shape)}")
     smem = use_shared_memory(nb, k)
+    lib = _lib()
+    if not smem and lib.btb_factor_smem_bytes(nb, k, 0) > SMEM_LIMIT:
+        raise ValueError(f"btb_factor: nb={nb}, k={k} is wider than the "
+                         f"kernel takes (nb up to {MAX_NB} for k up to 23)")
     S_lu = torch.empty_like(D)
     S_piv = torch.empty((Bt, N, nb), dtype=torch.int32, device=D.device)
     Tinv_B = torch.empty_like(B)
     Sb_lu = torch.empty_like(C)
     Sb_piv = torch.empty((Bt, k), dtype=torch.int32, device=D.device)
-    scratch = None if smem else D.new_empty((Bt, nb, nb))
-    lib = _lib()
+    scratch = None if smem else D.new_empty((Bt, nb, nb + k))
     rc = lib.btb_factor_f64(
         D.data_ptr(), L.data_ptr(), B.data_ptr(), C.data_ptr(),
         S_lu.data_ptr(), S_piv.data_ptr(), Tinv_B.data_ptr(),

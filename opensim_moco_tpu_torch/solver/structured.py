@@ -354,6 +354,27 @@ def btb_solve(fac: BTBFac, rhs_T, rhs_C):
     return (x[..., 0], w[..., 0]) if single else (x, w)
 
 
+def dense_kkt(D, L, B, C):
+    """[[T, B], [B^T, C]] assembled dense, (B, N nb + k, N nb + k), from the
+    blocks ``btb_factor`` takes: the yardstick the btb path is checked
+    against."""
+    Bt, N, nb, _ = D.shape
+    k = B.shape[-1]
+    K = D.new_zeros((Bt, N * nb + k, N * nb + k))
+    for i in range(N):
+        s = slice(i * nb, (i + 1) * nb)
+        K[:, s, s] = D[:, i]
+        if i + 1 < N:
+            t = slice((i + 1) * nb, (i + 2) * nb)
+            K[:, t, s] = L[:, i]
+            K[:, s, t] = L[:, i].transpose(-1, -2)
+    Bf = B.reshape(Bt, N * nb, k)
+    K[:, :N * nb, N * nb:] = Bf
+    K[:, N * nb:, :N * nb] = Bf.transpose(-1, -2)
+    K[:, N * nb:, N * nb:] = C
+    return K
+
+
 def block_H_diag(hb, ix: BlockIndex):
     """diag(H) (B, n) from Hessian blocks."""
     return ix.vars_from_blocks(torch.diagonal(hb["Hvv"], 0, -2, -1),

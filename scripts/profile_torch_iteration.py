@@ -8,7 +8,9 @@ the bench's IPM options) and each ``kkt`` mode ("dense", "auto",
   ``torch.cuda.synchronize()``, after ``init_fn`` and 3 warm-up steps);
 * a ``torch.profiler`` trace of 3 further steps: kernel launches, the
   device's busy and idle share (busy = the union of the kernels' device
-  intervals), and the kernels with the most device time;
+  intervals), the kernels with the most device time, and K1's (the
+  ``btb_*_kernel`` kernels of ``csrc/btb.cu``) device time and its share of
+  the busy time;
 
 and, at the same 32 starting points, the derivative passes timed alone:
 dense ``vmap(jacfwd(c))`` and ``vmap(jacfwd(grad(L)))`` against the
@@ -16,7 +18,8 @@ compressed ``jac_blocks`` and ``hess_blocks``.
 
 Prints one JSON object per line. Run from the root of the repository::
 
-    python3 scripts/profile_torch_iteration.py [--out profile.json]
+    python3 scripts/profile_torch_iteration.py [--out profile.json] \
+        [--modes dense,auto,structured]
 """
 
 import argparse
@@ -97,14 +100,19 @@ def profile_mode(tr, Z0, z0, mode, dev="cuda"):
                 step()
             torch.cuda.synchronize()
     launches, busy, window = _busy_share(prof)
-    top = sorted(((e.key, e.self_device_time_total * 1e-6, e.count)
-                  for e in prof.key_averages()
-                  if e.self_device_time_total > 0),
-                 key=lambda r: -r[1])[:8]
+    kernels = [(e.key, e.self_device_time_total * 1e-6, e.count)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    top = sorted(kernels, key=lambda r: -r[1])[:8]
+    k1 = {name: (s, c) for name, s, c in kernels
+          if "btb_factor_kernel" in name or "btb_solve_kernel" in name}
+    k1_s = sum(s for s, _ in k1.values())
     return {"mode": mode, "body_fn_s": s_iter,
             "profiled_steps": 3, "kernel_launches": launches,
             "device_busy_s": busy, "window_s": window,
             "device_idle_share": 1.0 - busy / window,
+            "k1_device_s": k1_s, "k1_share_of_busy": k1_s / busy,
+            "k1": [{"name": k[:80], "s": s, "count": c}
+                   for k, (s, c) in k1.items()],
             "top_device_s": [{"name": k[:80], "s": s, "count": c}
                              for k, s, c in top]}
 

@@ -5,11 +5,16 @@ a machine with a card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 (``--noconftest``: ``tests/conftest.py`` sets up JAX.) On the CPU the
-``cuda`` test skips; the others check the plain version on a singular
-block and that K1's wrapper takes the plain path for a CPU tensor. On the
+``cuda`` tests skip; the others check the plain version against a dense
+solve of the assembled KKT matrix at ragged shapes and on a singular
+block, and that K1's wrapper takes the plain path for a CPU tensor. On the
 card, K1 agrees with the plain version to relative 1e-10 of the largest
 magnitude on well-conditioned random blocks (float64; the two sum in
-different orders), in both of the kernel's memory modes.
+different orders) at shapes that cross every 32-row triangle, 32-column
+panel and 64-wide product tile edge and the bound between the kernel's
+two memory modes (``ops.btb.EDGE_SHAPES``, which ``chip_smoke.py`` phase
+8d also sweeps) and at the widest block it takes, and a singular lane
+stays non-finite in both modes.
 """
 
 import numpy as np
@@ -34,6 +39,21 @@ def _random_blocks(Bt=2, N=4, nb=5, k=2, seed=0):
     Bm = rng.standard_normal((Bt, N, nb, k))
     C = rng.standard_normal((Bt, k, k)) + 4 * N * nb * np.eye(k)
     return [torch.as_tensor(a) for a in (D, L, Bm, C)]
+
+
+@pytest.mark.parametrize("N,nb,k", [(1, 5, 1), (2, 31, 0), (3, 33, 4),
+                                    (2, 65, 1), (16, 5, 4), (4, 32, 1)])
+def test_plain_btb_matches_dense_solve(N, nb, k):
+    """The plain btb factor and solve (the card test's reference) against
+    torch.linalg.solve of the assembled KKT matrix, to relative 1e-10."""
+    D, L, Bm, C = _random_blocks(2, N, nb, k, seed=nb + 7 * N + k)
+    rng = np.random.default_rng(N * nb)
+    rhs_T = torch.as_tensor(rng.standard_normal((2, N, nb, 3)))
+    rhs_C = torch.as_tensor(rng.standard_normal((2, k, 3)))
+    x, w = ts.btb_solve(ts.btb_factor(D, L, Bm, C), rhs_T, rhs_C)
+    ref = torch.linalg.solve(ts.dense_kkt(D, L, Bm, C),
+                             torch.cat([rhs_T.reshape(2, -1, 3), rhs_C], 1))
+    assert _rel(torch.cat([x.reshape(2, -1, 3), w], 1), ref) <= 1e-10
 
 
 def test_singular_block_gives_nonfinite_output():
@@ -77,16 +97,60 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_k1_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("N,nb,k", k1.EDGE_SHAPES)
+def test_k1_matches_plain_on_card(cuda_device, N, nb, k):
     """K1 against its plain version on the card (skipped without one)."""
-    for seed, (Bt, N, nb, k) in enumerate([(3, 5, 6, 1), (2, 4, 40, 0),
-                                           (2, 3, 130, 3)]):
-        blocks = [t.to(cuda_device) for t in
-                  _random_blocks(Bt, N, nb, k, seed)]
-        rhs_T = torch.ones(Bt, N, nb, 2, dtype=torch.float64,
-                           device=cuda_device)
-        rhs_C = torch.ones(Bt, k, 2, dtype=torch.float64, device=cuda_device)
-        x_k, w_k = k1.btb_solve(k1.btb_factor(*blocks), rhs_T, rhs_C)
-        x_p, w_p = ts.btb_solve(ts.btb_factor(*blocks), rhs_T, rhs_C)
-        assert _rel(torch.cat([x_k.flatten(), w_k.flatten()]),
-                    torch.cat([x_p.flatten(), w_p.flatten()])) <= 1e-10
+    Bt = 2
+    blocks = [t.to(cuda_device) for t in
+              _random_blocks(Bt, N, nb, k, seed=nb + 7 * N + k)]
+    rng = np.random.default_rng(nb)
+    rhs_T = torch.as_tensor(rng.standard_normal((Bt, N, nb, 2)),
+                            device=cuda_device)
+    rhs_C = torch.as_tensor(rng.standard_normal((Bt, k, 2)),
+                            device=cuda_device)
+    x_k, w_k = k1.btb_solve(k1.btb_factor(*blocks), rhs_T, rhs_C)
+    x_p, w_p = ts.btb_solve(ts.btb_factor(*blocks), rhs_T, rhs_C)
+    for lane in range(Bt):
+        assert _rel(torch.cat([x_k[lane].flatten(), w_k[lane].flatten()]),
+                    torch.cat([x_p[lane].flatten(), w_p[lane].flatten()])
+                    ) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [34, 200])
+def test_k1_singular_lane_on_card(cuda_device, nb):
+    """A singular Schur block gives non-finite output in its own lane only,
+    in the shared-memory (nb=34) and the device-memory (nb=200) mode."""
+    assert k1.use_shared_memory(nb, 1) == (nb == 34)
+    D, L, Bm, C = [t.to(cuda_device) for t in
+                   _random_blocks(2, 4, nb, 1, seed=nb)]
+    D[1, 2] = 0.0  # lane 1: D_2 = 0, and L_1 = 0 keeps S_2 = 0
+    L[1, 1] = 0.0
+    x, w = k1.btb_solve(k1.btb_factor(D, L, Bm, C),
+                        torch.ones_like(D[..., 0]), torch.ones_like(C[..., 0]))
+    torch.cuda.synchronize()
+    assert torch.isfinite(x[0]).all() and torch.isfinite(w[0]).all()
+    assert not torch.isfinite(x[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 23])
+def test_k1_widest_block_on_card(cuda_device, k):
+    """At the widest block the factor takes (``MAX_NB``, device-memory
+    mode) K1 agrees with its plain version; a block one row wider raises
+    before launch."""
+    nb = k1.MAX_NB
+    assert not k1.use_shared_memory(nb, k)
+    blocks = [t.to(cuda_device) for t in _random_blocks(1, 2, nb, k, seed=k)]
+    rng = np.random.default_rng(k)
+    rhs_T = torch.as_tensor(rng.standard_normal((1, 2, nb, 2)),
+                            device=cuda_device)
+    rhs_C = torch.as_tensor(rng.standard_normal((1, k, 2)),
+                            device=cuda_device)
+    x_k, w_k = k1.btb_solve(k1.btb_factor(*blocks), rhs_T, rhs_C)
+    x_p, w_p = ts.btb_solve(ts.btb_factor(*blocks), rhs_T, rhs_C)
+    assert _rel(torch.cat([x_k.flatten(), w_k.flatten()]),
+                torch.cat([x_p.flatten(), w_p.flatten()])) <= 1e-10
+    wider = [t.to(cuda_device) for t in _random_blocks(1, 2, nb + 1, k)]
+    with pytest.raises(ValueError, match="wider than the kernel takes"):
+        k1.btb_factor(*wider)
