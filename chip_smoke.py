@@ -32,20 +32,23 @@ Phases, one report line each:
    objectives within relative 1e-2;
 8. K1 against its plain PyTorch version on the card, with times: (a) the
    KKT blocks the structured lane factors in its first iteration (B=32,
-   N=25, nb=34, k=1), factor then a 3-column solve; (b) random
-   well-conditioned blocks, B=8, N=16, nb=200, k=4 (the device-memory
-   mode); (c) a lane with a singular block gives non-finite output and no
+   N=25, nb=34, k=1), factor then a 3-column solve and a 1-column solve
+   in the main path's form; (b) random well-conditioned blocks, B=8,
+   N=16, nb=200, k=4 (the device-memory mode), factor then a 3-column
+   solve; (c) a lane with a singular block gives non-finite output and no
    exception, in both memory modes; (d) every shape of a sweep that
    crosses the kernel's tile, panel and memory-mode edges
-   (``ops.btb.EDGE_SHAPES``) agrees lane by lane, B=2. The lines of (a)
-   and (b) also give the factor's barrier phases as the code reckons them
-   (``_factor_barriers``);
+   (``ops.btb.EDGE_SHAPES``), each with 1, 2 and 9 right-hand sides,
+   agrees lane by lane, B=2. The lines of (a) and (b) also give the
+   factor's and the solve's barrier phases as the code reckons them
+   (``_factor_barriers``, ``_solve_barriers``);
 9. card against CPU, iterate level, under ``kkt="structured"``.
 
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
 bound, at shape (a), and under a key that names shape (b) the same times
-at shape (b), which the main path does not launch. The last line of
+at shape (b), which the main path does not launch; the solve also under
+a key for its 1-column times at shape (a). The last line of
 standard output is the result object. Run from the root of the
 repository::
 
@@ -245,69 +248,106 @@ def _factor_barriers(N, nb, k, smem):
     return count + 1 + _lu_factor_barriers(k, False)
 
 
+def _solve_barriers(N, nb, k, r):
+    """Barrier phases (__syncthreads) that one lane of the solve kernel
+    passes with r right-hand sides, as reckoned by hand from csrc/btb.cu's
+    control flow: per forward step the solve with S_{i-1} and the product
+    with L_{i-1}; per back step the product with L_i (not at i = N - 1),
+    the solve with S_i and the store of x_i; then the border's solve.
+    Nothing checks it against the kernel: an edit there must be copied
+    here."""
+    count = (N - 1) * (_lu_solve_barriers(nb, r, False, False) +
+                       _gemm_barriers(nb, r, nb))
+    count += N * (_lu_solve_barriers(nb, r, False, False) + 1)
+    count += (N - 1) * _gemm_barriers(r, nb, nb)
+    return count + (_lu_solve_barriers(k, r, False, False) if k else 0)
+
+
 def _bound(flops, nbytes):
     t_ops, t_bytes = flops / FP64_FLOPS, nbytes / HBM_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                         else "bytes")
 
 
-def _check_btb(torch, D, L, Bm, C, r, seed, reps):
-    """K1 against the plain version on one set of blocks: factor, then an
-    r-column solve; errors, KKT residuals and times."""
+def _check_solve(torch, fk, fp, K, lu, r, seed, reps):
+    """One K1 solve with r right-hand sides (r = 1: the main path's form,
+    rhs_T (B, N, nb)) against the plain version, from the factors fk
+    (kernel) and fp (plain); K is the dense KKT matrix and lu its library
+    LU. Errors, KKT residuals, times, bound and barrier phases."""
     from opensim_moco_tpu_torch.ops import btb as k1
     from opensim_moco_tpu_torch.solver import structured as plain
 
-    Bt, N, nb, _ = D.shape
-    k = Bm.shape[-1]
+    Bt, N, nb, _ = fk.S_lu.shape
+    k = fk.B.shape[-1]
+    cols = () if r == 1 else (r,)
     rng = np.random.default_rng(seed)
-    rhs_T = torch.as_tensor(rng.standard_normal((Bt, N, nb, r)),
-                            device=D.device)
-    rhs_C = torch.as_tensor(rng.standard_normal((Bt, k, r)), device=D.device)
-    fk = k1.btb_factor(D, L, Bm, C)
+    dev = fk.S_lu.device
+    rhs_T = torch.as_tensor(rng.standard_normal((Bt, N, nb) + cols),
+                            device=dev)
+    rhs_C = torch.as_tensor(rng.standard_normal((Bt, k) + cols), device=dev)
     xk, wk = k1.btb_solve(fk, rhs_T, rhs_C)
-    fp = plain.btb_factor(D, L, Bm, C)
     xp, wp = plain.btb_solve(fp, rhs_T, rhs_C)
     torch.cuda.synchronize()
-    sol_k = torch.cat([xk.reshape(Bt, -1, r), wk], 1)
-    sol_p = torch.cat([xp.reshape(Bt, -1, r), wp], 1)
-    K = plain.dense_kkt(D, L, Bm, C)
-    rhs = torch.cat([rhs_T.reshape(Bt, -1, r), rhs_C], 1)
+    sol_k = torch.cat([xk.reshape(Bt, -1, r), wk.reshape(Bt, -1, r)], 1)
+    sol_p = torch.cat([xp.reshape(Bt, -1, r), wp.reshape(Bt, -1, r)], 1)
+    rhs = torch.cat([rhs_T.reshape(Bt, -1, r), rhs_C.reshape(Bt, -1, r)], 1)
 
     def backward_err(sol):
         res = (K @ sol - rhs).abs().amax((1, 2))
         scale = K.abs().amax((1, 2)) * sol.abs().amax((1, 2))
         return float((res / torch.clamp(scale, min=1.0)).max())
 
-    out = {"shape": {"B": Bt, "N": N, "nb": nb, "k": k, "r": r},
-           "max_abs_err": float((sol_k - sol_p).abs().max()),
+    out = {"r": r, "max_abs_err": float((sol_k - sol_p).abs().max()),
            "max_lane_rel_err": _lane_rel_err(sol_k, sol_p),
-           "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu),
            "backward_err_kernel": backward_err(sol_k),
            "backward_err_plain": backward_err(sol_p),
-           "finite": bool(torch.isfinite(sol_k).all())}
-    out["factor_ms"] = _events_ms(
-        torch, lambda: k1.btb_factor(D, L, Bm, C), reps)
+           "finite": bool(torch.isfinite(sol_k).all()),
+           "solve_barrier_phases": _solve_barriers(N, nb, k, r)}
     out["solve_ms"] = _events_ms(
         torch, lambda: k1.btb_solve(fk, rhs_T, rhs_C), reps)
-    out["plain_factor_ms"] = _events_ms(
-        torch, lambda: plain.btb_factor(D, L, Bm, C), max(1, reps // 10))
     out["plain_solve_ms"] = _events_ms(
         torch, lambda: plain.btb_solve(fp, rhs_T, rhs_C), max(1, reps // 10))
-    lu = [None]
-
-    def lib_factor():
-        lu[0] = torch.linalg.lu_factor_ex(K)
-
-    out["library_factor_ms"] = _events_ms(torch, lib_factor,
-                                          max(1, reps // 10))
     out["library_solve_ms"] = _events_ms(
-        torch, lambda: torch.linalg.lu_solve(lu[0][0], lu[0][1], rhs),
+        torch, lambda: torch.linalg.lu_solve(lu[0], lu[1], rhs),
         max(1, reps // 10))
-    f_flops, f_bytes, s_flops, s_bytes = _btb_work(Bt, N, nb, k, r)
+    _, _, s_flops, s_bytes = _btb_work(Bt, N, nb, k, r)
+    out["solve_bound_ms"], out["solve_bound_by"] = _bound(s_flops, s_bytes)
+    return out
+
+
+def _check_btb(torch, D, L, Bm, C, rs, seed, reps):
+    """K1 against the plain version on one set of blocks: the factor, then
+    a solve with each number of right-hand sides in ``rs``; errors, KKT
+    residuals and times. The first solve's results sit beside the
+    factor's, the others under ``solve_r<r>``."""
+    from opensim_moco_tpu_torch.ops import btb as k1
+    from opensim_moco_tpu_torch.solver import structured as plain
+
+    Bt, N, nb, _ = D.shape
+    k = Bm.shape[-1]
+    fk = k1.btb_factor(D, L, Bm, C)
+    fp = plain.btb_factor(D, L, Bm, C)
+    K = plain.dense_kkt(D, L, Bm, C)
+    lu = torch.linalg.lu_factor_ex(K)
+    torch.cuda.synchronize()
+    out = {"shape": {"B": Bt, "N": N, "nb": nb, "k": k},
+           "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu)}
+    for r in rs:
+        res = _check_solve(torch, fk, fp, K, lu, r, seed, reps)
+        if r == rs[0]:
+            out.update(res)
+        else:
+            out[f"solve_r{r}"] = res
+    out["factor_ms"] = _events_ms(
+        torch, lambda: k1.btb_factor(D, L, Bm, C), reps)
+    out["plain_factor_ms"] = _events_ms(
+        torch, lambda: plain.btb_factor(D, L, Bm, C), max(1, reps // 10))
+    out["library_factor_ms"] = _events_ms(
+        torch, lambda: torch.linalg.lu_factor_ex(K), max(1, reps // 10))
+    f_flops, f_bytes, _, _ = _btb_work(Bt, N, nb, k, 1)
     out["factor_barrier_phases"] = _factor_barriers(
         N, nb, k, k1.use_shared_memory(nb, k))
     out["factor_bound_ms"], out["factor_bound_by"] = _bound(f_flops, f_bytes)
-    out["solve_bound_ms"], out["solve_bound_by"] = _bound(s_flops, s_bytes)
     return out
 
 
@@ -361,31 +401,39 @@ def _random_blocks(torch, Bt, N, nb, k, seed):
     return t(D), t(L), t(Bm), t(C)
 
 
+SWEEP_RS = (1, 2, 9)
+
+
 def _sweep(torch):
-    """K1 against the plain version at every shape of EDGE_SHAPES, B=2: the
-    worst
-    per-lane relative error and the shapes that disagree or are not
-    finite."""
+    """K1 against the plain version at every shape of EDGE_SHAPES, B=2, one
+    factor and a solve with each number of right-hand sides of SWEEP_RS (1
+    in the main path's form): the worst per-lane relative error and the
+    (N, nb, k, r) that disagree or are not finite."""
     from opensim_moco_tpu_torch.ops import btb as k1
     from opensim_moco_tpu_torch.solver import structured as plain
 
     worst, bad = 0.0, []
     for N, nb, k in k1.EDGE_SHAPES:
         blocks = _random_blocks(torch, 2, N, nb, k, nb + 7 * N + k)
-        rng = np.random.default_rng(nb)
-        rhs_T = torch.as_tensor(rng.standard_normal((2, N, nb, 2)),
-                                device="cuda")
-        rhs_C = torch.as_tensor(rng.standard_normal((2, k, 2)), device="cuda")
-        xk, wk = k1.btb_solve(k1.btb_factor(*blocks), rhs_T, rhs_C)
-        xp, wp = plain.btb_solve(plain.btb_factor(*blocks), rhs_T, rhs_C)
-        sk = torch.cat([xk.reshape(2, -1), wk.reshape(2, -1)], 1)
-        sp = torch.cat([xp.reshape(2, -1), wp.reshape(2, -1)], 1)
-        err = _lane_rel_err(sk, sp)
-        worst = max(worst, err)
-        if not bool(torch.isfinite(sk).all()) or err > KERNEL_RTOL:
-            bad.append([N, nb, k, err])
-    return {"shapes": len(k1.EDGE_SHAPES), "max_lane_rel_err": worst,
-            "disagree": bad}
+        fk, fp = k1.btb_factor(*blocks), plain.btb_factor(*blocks)
+        for r in SWEEP_RS:
+            cols = () if r == 1 else (r,)
+            rng = np.random.default_rng(nb)
+            rhs_T = torch.as_tensor(rng.standard_normal((2, N, nb) + cols),
+                                    device="cuda")
+            rhs_C = torch.as_tensor(rng.standard_normal((2, k) + cols),
+                                    device="cuda")
+            xk, wk = k1.btb_solve(fk, rhs_T, rhs_C)
+            xp, wp = plain.btb_solve(fp, rhs_T, rhs_C)
+            sk = torch.cat([xk.reshape(2, -1), wk.reshape(2, -1)], 1)
+            sp = torch.cat([xp.reshape(2, -1), wp.reshape(2, -1)], 1)
+            err = _lane_rel_err(sk, sp)
+            worst = max(worst, err)
+            if not bool(torch.isfinite(sk).all()) or err > KERNEL_RTOL \
+                    or xk.shape != rhs_T.shape:
+                bad.append([N, nb, k, r, err])
+    return {"shapes": len(k1.EDGE_SHAPES), "rs": list(SWEEP_RS),
+            "max_lane_rel_err": worst, "disagree": bad}
 
 
 def main():
@@ -545,12 +593,12 @@ def main():
     kernels = []
     if 8 in phases:
         blocks = _capture_first_newton_blocks(torch, tr, opts_st, z0, Z0)
-        shapes = {"a_bench_newton": (blocks, 3, 1, 200),
+        shapes = {"a_bench_newton": (blocks, (3, 1), 1, 200),
                   "b_random_nb200": (_random_blocks(torch, 8, 16, 200, 4, 2),
-                                     3, 3, 20)}
+                                     (3,), 3, 20)}
         k1 = {}
-        for name, (blk, r, seed, reps) in shapes.items():
-            k1[name] = _check_btb(torch, *blk, r, seed, reps)
+        for name, (blk, rs, seed, reps) in shapes.items():
+            k1[name] = _check_btb(torch, *blk, rs, seed, reps)
             print(f"phase 8{name[0]} K1 vs plain, {name}: "
                   + json.dumps(k1[name]), flush=True)
         # (c) one singular lane: non-finite output, no exception, in the
@@ -586,8 +634,10 @@ def main():
         if k1["d_sweep"]["disagree"]:
             _fail("phase 8d: K1 and the plain version disagree at "
                   f"{k1['d_sweep']['disagree']}")
-        for name in ("a_bench_newton", "b_random_nb200"):
-            r = k1[name]
+        for name, r in (("a_bench_newton", k1["a_bench_newton"]),
+                        ("a_bench_newton r=1",
+                         k1["a_bench_newton"]["solve_r1"]),
+                        ("b_random_nb200", k1["b_random_nb200"])):
             if not r["finite"] or r["max_lane_rel_err"] > KERNEL_RTOL:
                 _fail(f"phase 8 {name}: K1 and the plain version disagree")
         a, b = k1["a_bench_newton"], k1["b_random_nb200"]
@@ -603,6 +653,9 @@ def main():
                 "max_abs_err": a["max_abs_err"], **_kernel_times(a, part),
                 "B8_N16_nb200_k4" + ("_r3" if part == "solve" else ""): {
                     "max_abs_err": b["max_abs_err"], **_kernel_times(b, part)}})
+        a1 = a["solve_r1"]
+        kernels[-1]["B32_N25_nb34_k1_r1"] = {
+            "max_abs_err": a1["max_abs_err"], **_kernel_times(a1, "solve")}
 
     # ---- phase 9: card against CPU, iterate level, structured
     if 9 in phases:

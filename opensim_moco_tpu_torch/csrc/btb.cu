@@ -13,8 +13,11 @@
 //           pivot left unscaled); then T^{-1} B by a forward and a back
 //           sweep, the border Schur complement C - sum_i B_i^T (T^{-1} B)_i
 //           (k x k) and its LU.
-//   solve:  multi-right-hand-side forward and back sweeps with the stored
-//           factors, then the border correction.
+//   solve:  x = T^{-1} rhs_T by a forward sweep (y_i = rhs_i - L_{i-1}
+//           S_{i-1}^{-1} y_{i-1}) and a back sweep (x_i = S_i^{-1} (y_i -
+//           L_i^T x_{i+1})) with the stored factors, then the border: w =
+//           Sb^{-1} (rhs_C - sum_i B_i^T x_i) and x -= (T^{-1} B) w; r
+//           right-hand sides (the IPM solves one at a time).
 // A singular or indefinite trial yields inf/NaN, never a fix-up: the IPM's
 // regularization loop reads a non-finite step as "raise delta".
 //
@@ -58,11 +61,22 @@
 //     memory. That staging (a panel of nb x 33 doubles) bounds the width:
 //     nb up to 738 for k up to 23 (btb_factor_smem_bytes against the 227
 //     KB a block may have); ops/btb.py raises above it.
+// What bounds the solve: the same sequential recursion, with far less work
+// a block (at r = 1 a product is a matrix-vector product), so it is bound
+// by latency: the dependent device-memory reads of each block's factors.
+// The first design took one block-wide barrier per elimination row (3,434
+// barrier phases per solve at the bench shape with r = 1, 1.19 ms on an
+// H100); the blocked one below takes 760 and 0.99 ms, 1.3 us a phase.
+// What the solve's design does about it: per diagonal block the factor's
+// own lu_solve (32-row triangles by shuffles, the rest by gemm()); the
+// sweep products by gemm(), the back sweep's L_i^T x_{i+1} as x_{i+1}^T
+// L_i so that L_i is read coalesced; each y_i goes to x_i in the forward
+// product's epilogue and waits there for the back sweep; the border's k x
+// k solve by lu_solve; no division or remainder by a runtime value in any
+// inner loop.
 // Left for later: FP64 tensor cores (mma.sync m8n8k4, 67 TFLOP/s against
 // 34 on the CUDA cores) in gemm(); more than one thread block per lane
-// when B is small and nb large; a shorter per-column chain in the panels;
-// and a redesign of the solve kernel, which keeps its first design (one
-// block-wide barrier per elimination step).
+// when B is small and nb large; a shorter per-column chain in the panels.
 
 #include <cuda_runtime.h>
 
@@ -647,96 +661,38 @@ btb_factor_kernel(const double* __restrict__ D, const double* __restrict__ L,
   lu_factor<false>(Sb_lu, k, k, Sb_piv, pos, nullptr, tiles);  // in place
 }
 
-// ---- the solve kernel (one block-wide barrier per elimination step)
+// ---- the solve kernel: blocked substitutions from the factor's routines
 
-// X (n x r, row-major, leading dimension r) <- A^{-1} X for A = P L U
-// stored by lu_factor (leading dimension n): the row swaps (one thread per
-// column), then column-oriented substitutions (as reference LAPACK's trsm),
-// each step one axpy over the remaining rows and all r columns by the whole
-// block. Every thread calls it.
-__device__ void lu_solve_block(const double* LU, const int* piv, int n,
-                               double* X, int r) {
-  const int tid = threadIdx.x;
-  for (int c = tid; c < r; c += kThreads) {
-    for (int k = 0; k < n; ++k) {
-      const int p = piv[k] - 1;
-      if (p != k) {
-        const double t = X[(size_t)k * r + c];
-        X[(size_t)k * r + c] = X[(size_t)p * r + c];
-        X[(size_t)p * r + c] = t;
-      }
-    }
+// The forward sweep's product L_{i-1} (S_{i-1}^{-1} y_{i-1}): y_i = rhs_i -
+// acc, into the next buffer of right-hand sides (shared memory) and into
+// x_i, where the back sweep reads it.
+struct FwdEpi {
+  double* Yn;
+  double* Xi;
+  const double* Ri;
+  int r;
+  __device__ void operator()(int row, int c, double acc) const {
+    const size_t e = (size_t)row * r + c;
+    const double y = Ri[e] - acc;
+    Yn[e] = y;
+    Xi[e] = y;
   }
-  __syncthreads();
-  for (int k = 0; k + 1 < n; ++k) {  // unit lower triangle
-    const int m = (n - k - 1) * r;
-    for (int e = tid; e < m; e += kThreads) {
-      const int row = k + 1 + e / r, c = e % r;
-      X[(size_t)row * r + c] -= LU[(size_t)row * n + k] * X[(size_t)k * r + c];
-    }
-    __syncthreads();
-  }
-  for (int k = n - 1; k > 0; --k) {  // upper triangle; row k is final here
-    const double ukk = LU[(size_t)k * n + k];
-    for (int e = tid; e < k * r; e += kThreads) {
-      const int row = e / r, c = e % r;
-      X[(size_t)row * r + c] -= LU[(size_t)row * n + k] * (X[(size_t)k * r + c] / ukk);
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < n * r; e += kThreads) {
-    const int row = e / r;
-    X[e] /= LU[(size_t)row * n + row];
-  }
-  __syncthreads();
-}
+};
 
-// X (N, nb, r) <- T^{-1} X with the stored block factors. tmp (nb*r,
-// shared memory) holds the block under solution, so the triangular solves
-// work in shared memory.
-__device__ void t_solve(const double* S_lu, const int* S_piv, const double* L,
-                        int N, int nb, double* X, int r, double* tmp) {
-  const int tid = threadIdx.x;
-  const size_t bsz = (size_t)nb * nb;
-  const int nr = nb * r;
-  for (int i = 1; i < N; ++i) {  // y_i = r_i - L_{i-1} S_{i-1}^{-1} y_{i-1}
-    const double* yp = X + (size_t)(i - 1) * nr;
-    for (int e = tid; e < nr; e += kThreads) tmp[e] = yp[e];
-    __syncthreads();
-    lu_solve_block(S_lu + (i - 1) * bsz, S_piv + (size_t)(i - 1) * nb, nb,
-                   tmp, r);
-    const double* Li = L + (i - 1) * bsz;
-    double* yi = X + (size_t)i * nr;
-    for (int e = tid; e < nr; e += kThreads) {
-      const int row = e / r, c = e % r;
-      double acc = 0.0;
-      for (int j = 0; j < nb; ++j)
-        acc += Li[(size_t)row * nb + j] * tmp[(size_t)j * r + c];
-      yi[e] -= acc;
-    }
-    __syncthreads();
+// The back sweep's product x_{i+1}^T L_i (r x nb), transposed on the way
+// out: Y[c][q] = y_i[c][q] - (L_i^T x_{i+1})[c][q].
+struct BackEpi {
+  double* Y;
+  const double* Yi;
+  int r;
+  __device__ void operator()(int q, int c, double acc) const {
+    const size_t e = (size_t)c * r + q;
+    Y[e] = Yi[e] - acc;
   }
-  for (int i = N - 1; i >= 0; --i) {  // x_i = S_i^{-1} (y_i - L_i^T x_{i+1})
-    double* xi = X + (size_t)i * nr;
-    for (int e = tid; e < nr; e += kThreads) {
-      const int row = e / r, c = e % r;
-      double acc = 0.0;
-      if (i + 1 < N) {
-        const double* Li = L + i * bsz;
-        const double* xn = X + (size_t)(i + 1) * nr;
-        for (int j = 0; j < nb; ++j)
-          acc += Li[(size_t)j * nb + row] * xn[(size_t)j * r + c];
-      }
-      tmp[e] = xi[e] - acc;
-    }
-    __syncthreads();
-    lu_solve_block(S_lu + i * bsz, S_piv + (size_t)i * nb, nb, tmp, r);
-    for (int e = tid; e < nr; e += kThreads) xi[e] = tmp[e];
-    __syncthreads();
-  }
-}
+};
 
-__global__ void __launch_bounds__(kThreads)
+// (__launch_bounds__'s 1 as for the factor: gemm()'s register tile.)
+__global__ void __launch_bounds__(kThreads, 1)
 btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
                  const double* __restrict__ L, const double* __restrict__ Bm,
                  const double* __restrict__ Tinv_B,
@@ -745,7 +701,7 @@ btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
                  const double* __restrict__ rhs_T,
                  const double* __restrict__ rhs_C, double* x, double* w,
                  int N, int nb, int k, int r) {
-  extern __shared__ double tmp[];  // nb * r
+  extern __shared__ double smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -763,25 +719,71 @@ btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
   x += b * N * nb * r;
   w += b * k * r;
 
-  const int nr = N * nb * r;
-  for (int e = tid; e < nr; e += kThreads) x[e] = rhs_T[e];
-  __syncthreads();
-  t_solve(S_lu, S_piv, L, N, nb, x, r, tmp);
-  if (k == 0) return;
-  for (int e = warp; e < k * r; e += kWarps) {  // rhs_C - sum_i B_i^T x_i
-    const int p = e / r, c = e % r;
-    double s = 0.0;
-    for (int t = lane; t < N * nb; t += 32) s += Bm[(size_t)t * k + p] * x[(size_t)t * r + c];
-    s = warp_sum(s);
-    if (lane == 0) w[e] = rhs_C[e] - s;
+  // shared memory (btb_solve_smem_bytes): gemm's tiles; two nb x r buffers
+  // of right-hand sides, Ya the block under solution and Yb the next one
+  // (forward) or x_{i+1}^T (back); the border's k x r block; the pivots
+  const int nr = nb * r;
+  double* tiles = smem;
+  double* Ya = smem + kTileDoubles;
+  double* Yb = Ya + nr;
+  double* ws = Yb + nr;
+  int* piv_s = reinterpret_cast<int*>(ws + (size_t)k * r);
+
+  // forward sweep: y_0 = rhs_0, y_i = rhs_i - L_{i-1} S_{i-1}^{-1} y_{i-1};
+  // each y_i also goes to x_i. (lu_solve's first barrier comes before it
+  // reads Ya.)
+  for (int e = tid; e < nr; e += kThreads) {
+    const double v = rhs_T[e];
+    Ya[e] = v;
+    x[e] = v;
   }
-  __syncthreads();
-  lu_solve_block(Sb_lu, Sb_piv, k, w, r);
-  for (int e = tid; e < nr; e += kThreads) {  // x -= (T^{-1} B) w
-    const int t = e / r, c = e % r;
-    double acc = 0.0;
-    for (int q = 0; q < k; ++q) acc += Tinv_B[(size_t)t * k + q] * w[(size_t)q * r + c];
-    x[e] -= acc;
+  for (int i = 1; i < N; ++i) {
+    lu_solve<false, false>(S_lu + (i - 1) * bsz, nb,
+                           S_piv + (size_t)(i - 1) * nb, nb, Ya, r, r, tiles,
+                           nullptr, nullptr, piv_s);
+    gemm(nb, r, nb, L + (i - 1) * bsz, nb, Ya, r, tiles,
+         FwdEpi{Yb, x + (size_t)i * nr, rhs_T + (size_t)i * nr, r});
+    double* t = Ya;
+    Ya = Yb;
+    Yb = t;
+  }
+  // back sweep: x_i = S_i^{-1} (y_i - L_i^T x_{i+1}), Ya holding y_{N-1};
+  // the product reads x_{i+1}^T from Yb and L_i coalesced
+  for (int i = N - 1; i >= 0; --i) {
+    double* xi = x + (size_t)i * nr;
+    if (i + 1 < N)
+      gemm(r, nb, nb, Yb, nb, L + i * bsz, nb, tiles, BackEpi{Ya, xi, r});
+    lu_solve<false, false>(S_lu + i * bsz, nb, S_piv + (size_t)i * nb, nb,
+                           Ya, r, r, tiles, nullptr, nullptr, piv_s);
+    for (int e = tid; e < nr; e += kThreads) xi[e] = Ya[e];
+    if (i > 0)
+      for (int q = 0; q < r; ++q)
+        for (int j = tid; j < nb; j += kThreads)
+          Yb[(size_t)q * nb + j] = Ya[(size_t)j * r + q];
+    __syncthreads();
+  }
+  if (k == 0) return;
+  // the border: w = Sb^{-1} (rhs_C - sum_i B_i^T x_i), warps over w's rows,
+  // lanes over the N nb rows of x; then x -= (T^{-1} B) w, a row per thread
+  for (int p = warp; p < k; p += kWarps) {
+    for (int c = 0; c < r; ++c) {
+      double s = 0.0;
+      for (int t = lane; t < N * nb; t += 32)
+        s = fma(Bm[(size_t)t * k + p], x[(size_t)t * r + c], s);
+      s = warp_sum(s);
+      if (lane == 0) ws[p * r + c] = rhs_C[p * r + c] - s;
+    }
+  }
+  lu_solve<false, false>(Sb_lu, k, Sb_piv, k, ws, r, r, tiles, nullptr,
+                         nullptr, piv_s);
+  for (int e = tid; e < k * r; e += kThreads) w[e] = ws[e];
+  for (int t = tid; t < N * nb; t += kThreads) {
+    for (int c = 0; c < r; ++c) {
+      double acc = 0.0;
+      for (int q = 0; q < k; ++q)
+        acc = fma(Tinv_B[(size_t)t * k + q], ws[q * r + c], acc);
+      x[(size_t)t * r + c] -= acc;
+    }
   }
 }
 
@@ -817,12 +819,20 @@ int btb_factor_f64(const double* D, const double* L, const double* Bm,
   return (int)cudaGetLastError();
 }
 
+// Shared memory (bytes) the solve asks for: gemm's tiles, two nb x r
+// blocks of right-hand sides, the border's k x r block, the pivots.
+size_t btb_solve_smem_bytes(int nb, int k, int r) {
+  const size_t mx = nb > k ? nb : k;
+  return sizeof(double) * (kTileDoubles + (size_t)(2 * nb + k) * r) +
+         sizeof(int) * mx;
+}
+
 int btb_solve_f64(const double* S_lu, const int* S_piv, const double* L,
                   const double* Bm, const double* Tinv_B, const double* Sb_lu,
                   const int* Sb_piv, const double* rhs_T, const double* rhs_C,
                   double* x, double* w, int batch, int N, int nb, int k, int r,
                   void* stream) {
-  const size_t smem = sizeof(double) * (size_t)nb * r;
+  const size_t smem = btb_solve_smem_bytes(nb, k, r);
   cudaError_t err = cudaFuncSetAttribute(
       btb_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

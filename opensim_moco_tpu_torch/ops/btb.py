@@ -26,8 +26,8 @@ from ..solver.structured import btb_solve as btb_solve_plain
 from ._build import load
 
 LAUNCHES = {"btb_factor": 0, "btb_solve": 0}
-# bytes of dynamic shared memory the factor may ask for: the 227 KB a
-# block may have on sm_90, less 1 KB for its static shared memory
+# bytes of dynamic shared memory a kernel may ask for: the 227 KB a block
+# may have on sm_90, less 1 KB for the factor's static shared memory
 SMEM_LIMIT = 232448 - 1024
 # the widest block the factor takes (for k <= 23; less for wider borders):
 # its device-memory mode stages a panel of nb x 33 doubles in shared memory
@@ -54,6 +54,8 @@ def _lib():
         lib.btb_solve_f64.restype = _I
         lib.btb_factor_smem_bytes.argtypes = [_I] * 3
         lib.btb_factor_smem_bytes.restype = ctypes.c_size_t
+        lib.btb_solve_smem_bytes.argtypes = [_I] * 3
+        lib.btb_solve_smem_bytes.restype = ctypes.c_size_t
         lib.btb_error_string.argtypes = [_I]
         lib.btb_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -142,9 +144,14 @@ def btb_solve(fac: BTBFac, rhs_T, rhs_C):
     if Bt == 0 or r == 0:
         raise ValueError(f"btb_solve: empty right-hand side "
                          f"{tuple(rhs_T.shape)}")
+    lib = _lib()
+    smem = lib.btb_solve_smem_bytes(nb, k, r)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"btb_solve: r={r} right-hand sides at nb={nb}, "
+                         f"k={k} need {smem} bytes of shared memory, above "
+                         f"the limit of {SMEM_LIMIT}")
     x = torch.empty_like(rhs_T)
     w = torch.empty_like(rhs_C)
-    lib = _lib()
     rc = lib.btb_solve_f64(
         fac.S_lu.data_ptr(), fac.S_piv.data_ptr(), fac.L.data_ptr(),
         fac.B.data_ptr(), fac.Tinv_B.data_ptr(), fac.Sb_lu.data_ptr(),

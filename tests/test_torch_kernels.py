@@ -13,8 +13,10 @@ magnitude on well-conditioned random blocks (float64; the two sum in
 different orders) at shapes that cross every 32-row triangle, 32-column
 panel and 64-wide product tile edge and the bound between the kernel's
 two memory modes (``ops.btb.EDGE_SHAPES``, which ``chip_smoke.py`` phase
-8d also sweeps) and at the widest block it takes, and a singular lane
-stays non-finite in both modes.
+8d also sweeps), each with 1, 2 and 9 right-hand sides, and at the widest
+block it takes; a singular lane stays non-finite in both modes; and a
+solve whose right-hand sides do not fit the kernel's shared memory raises
+before launch.
 """
 
 import numpy as np
@@ -97,19 +99,24 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 9])
 @pytest.mark.parametrize("N,nb,k", k1.EDGE_SHAPES)
-def test_k1_matches_plain_on_card(cuda_device, N, nb, k):
-    """K1 against its plain version on the card (skipped without one)."""
+def test_k1_matches_plain_on_card(cuda_device, N, nb, k, r):
+    """K1 against its plain version on the card (skipped without one), for
+    one right-hand side in the main path's form (rhs_T (B, N, nb)) and for
+    2 and 9 columns."""
     Bt = 2
     blocks = [t.to(cuda_device) for t in
               _random_blocks(Bt, N, nb, k, seed=nb + 7 * N + k)]
     rng = np.random.default_rng(nb)
-    rhs_T = torch.as_tensor(rng.standard_normal((Bt, N, nb, 2)),
+    cols = () if r == 1 else (r,)
+    rhs_T = torch.as_tensor(rng.standard_normal((Bt, N, nb) + cols),
                             device=cuda_device)
-    rhs_C = torch.as_tensor(rng.standard_normal((Bt, k, 2)),
+    rhs_C = torch.as_tensor(rng.standard_normal((Bt, k) + cols),
                             device=cuda_device)
     x_k, w_k = k1.btb_solve(k1.btb_factor(*blocks), rhs_T, rhs_C)
     x_p, w_p = ts.btb_solve(ts.btb_factor(*blocks), rhs_T, rhs_C)
+    assert x_k.shape == rhs_T.shape and w_k.shape == rhs_C.shape
     for lane in range(Bt):
         assert _rel(torch.cat([x_k[lane].flatten(), w_k[lane].flatten()]),
                     torch.cat([x_p[lane].flatten(), w_p[lane].flatten()])
@@ -154,3 +161,23 @@ def test_k1_widest_block_on_card(cuda_device, k):
     wider = [t.to(cuda_device) for t in _random_blocks(1, 2, nb + 1, k)]
     with pytest.raises(ValueError, match="wider than the kernel takes"):
         k1.btb_factor(*wider)
+
+
+@pytest.mark.cuda
+def test_k1_solve_raises_above_shared_memory(cuda_device):
+    """At the widest block, a solve with more right-hand sides than the
+    solve kernel's shared memory holds raises before launch, naming the
+    limit."""
+    nb, k = k1.MAX_NB, 23
+    z = torch.zeros
+    f64 = dict(dtype=torch.float64, device=cuda_device)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    fac = ts.BTBFac(z(1, 1, nb, nb, **f64), z(1, 1, nb, **i32),
+                    z(1, 0, nb, nb, **f64), z(1, 1, nb, k, **f64),
+                    z(1, 1, nb, k, **f64), z(1, k, k, **f64),
+                    z(1, k, **i32))
+    r = 64
+    before = k1.LAUNCHES["btb_solve"]
+    with pytest.raises(ValueError, match=f"limit of {k1.SMEM_LIMIT}"):
+        k1.btb_solve(fac, z(1, 1, nb, r, **f64), z(1, k, r, **f64))
+    assert k1.LAUNCHES["btb_solve"] == before
