@@ -248,17 +248,23 @@ def _factor_barriers(N, nb, k, smem):
     return count + 1 + _lu_factor_barriers(k, False)
 
 
-def _solve_barriers(N, nb, k, r):
-    """Barrier phases (__syncthreads) that one lane of the solve kernel
-    passes with r right-hand sides, as reckoned by hand from csrc/btb.cu's
-    control flow: per forward step the solve with S_{i-1} and the product
-    with L_{i-1}; per back step the product with L_i (not at i = N - 1),
-    the solve with S_i and the store of x_i; then the border's solve.
+def _solve_barriers(N, nb, k, r, narrow):
+    """Barrier phases (__syncthreads) that one lane of the solve passes
+    with r right-hand sides, as reckoned by hand from csrc/btb.cu's control
+    flow. Narrow kernel: per step the staging of S_i (and L, and the next
+    right-hand sides), the one-warp solve with S_i, the product with L
+    (forward, and back but at i = N - 1); the store of x_0; the border's
+    staging and solve. Wide kernel: per forward step the solve with
+    S_{i-1} and the product with L_{i-1}; per back step the product with
+    L_i (not at i = N - 1), the solve with S_i (its triangles staged) and
+    the store of x_i; the border's solve.
     Nothing checks it against the kernel: an edit there must be copied
     here."""
-    count = (N - 1) * (_lu_solve_barriers(nb, r, False, False) +
+    if narrow:
+        return 3 * (N - 1) + 2 * N + (N - 1) + 1 + (2 if k else 0)
+    count = (N - 1) * (_lu_solve_barriers(nb, r, True, False) +
                        _gemm_barriers(nb, r, nb))
-    count += N * (_lu_solve_barriers(nb, r, False, False) + 1)
+    count += N * (_lu_solve_barriers(nb, r, True, False) + 1)
     count += (N - 1) * _gemm_barriers(r, nb, nb)
     return count + (_lu_solve_barriers(k, r, False, False) if k else 0)
 
@@ -302,7 +308,9 @@ def _check_solve(torch, fk, fp, K, lu, r, seed, reps):
            "backward_err_kernel": backward_err(sol_k),
            "backward_err_plain": backward_err(sol_p),
            "finite": bool(torch.isfinite(sol_k).all()),
-           "solve_barrier_phases": _solve_barriers(N, nb, k, r)}
+           "narrow": k1.narrow_solve(nb, k, r),
+           "solve_barrier_phases": _solve_barriers(
+               N, nb, k, r, k1.narrow_solve(nb, k, r))}
     out["solve_ms"] = _events_ms(
         torch, lambda: k1.btb_solve(fk, rhs_T, rhs_C), reps)
     out["plain_solve_ms"] = _events_ms(

@@ -61,22 +61,34 @@
 //     memory. That staging (a panel of nb x 33 doubles) bounds the width:
 //     nb up to 738 for k up to 23 (btb_factor_smem_bytes against the 227
 //     KB a block may have); ops/btb.py raises above it.
-// What bounds the solve: the same sequential recursion, with far less work
-// a block (at r = 1 a product is a matrix-vector product), so it is bound
-// by latency: the dependent device-memory reads of each block's factors.
-// The first design took one block-wide barrier per elimination row (3,434
-// barrier phases per solve at the bench shape with r = 1, 1.19 ms on an
-// H100); the blocked one below takes 760 and 0.99 ms, 1.3 us a phase.
-// What the solve's design does about it: per diagonal block the factor's
-// own lu_solve (32-row triangles by shuffles, the rest by gemm()); the
-// sweep products by gemm(), the back sweep's L_i^T x_{i+1} as x_{i+1}^T
-// L_i so that L_i is read coalesced; each y_i goes to x_i in the forward
-// product's epilogue and waits there for the back sweep; the border's k x
-// k solve by lu_solve; no division or remainder by a runtime value in any
-// inner loop.
+// What bounds the solve: the same sequential recursion with far less work
+// a block (one right-hand side on the IPM's path: matrix-vector products),
+// so latency: the first design took a block-wide barrier per elimination
+// row, 3,434 barrier phases per solve at the bench shape (B=32, N=25,
+// nb=34, k=1, r=1; 1.19 ms on an H100). Measured per phase with clock64
+// (an instrumented build, not kept), the cost is not the barriers: it is
+// each phase's dependent device-memory reads and its instruction count.
+// What the solve's design does about it: two kernels, chosen by shape.
+//   - wide (any r, any nb): per diagonal block the factor's lu_solve (32-row
+//     triangles staged in shared memory and solved by shuffles, the rest by
+//     gemm()); the sweep products by gemm(), the back sweep's L_i^T x_{i+1}
+//     as x_{i+1}^T L_i so that L_i is read coalesced; each y_i goes to x_i
+//     in the forward product's epilogue and waits there for the back sweep.
+//   - narrow (r <= 8 and nb, k <= 64, the IPM's case): each step first
+//     stages S_i's LU, its pivots, the L block and the next right-hand
+//     sides into shared memory with all of a thread's loads issued before
+//     its stores (one wait for device memory a step); then one warp per
+//     column solves the block in registers (swaps and substitutions by
+//     shuffles, no block barrier); then the product with L, a group of
+//     lanes per output row. Three barrier phases a step, 149 per solve at
+//     the bench shape, 0.29 ms.
+//   - both: the border's k x k solve by the same block solve; no division
+//     or remainder by a runtime value in an inner loop.
 // Left for later: FP64 tensor cores (mma.sync m8n8k4, 67 TFLOP/s against
 // 34 on the CUDA cores) in gemm(); more than one thread block per lane
-// when B is small and nb large; a shorter per-column chain in the panels.
+// when B is small and nb large; a shorter per-column chain in the panels;
+// in the solve, the next step's blocks staged while this one is solved
+// (cp.async), and the narrow kernel's staging for nb above 64.
 
 #include <cuda_runtime.h>
 
@@ -691,6 +703,43 @@ struct BackEpi {
   }
 };
 
+// The border's right-hand side ws = rhs_C - sum_i B_i^T x_i (k x r) from
+// x (rows = N nb rows of r columns, stored and behind a barrier): warps
+// over ws's rows, lanes over x's rows. No barrier.
+__device__ __forceinline__ void border_rhs(const double* Bm,
+                                           const double* rhs_C,
+                                           const double* x, double* ws,
+                                           int rows, int k, int r) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int p = warp; p < k; p += kWarps) {
+    for (int c = 0; c < r; ++c) {
+      double s = 0.0;
+      for (int t = lane; t < rows; t += 32)
+        s = fma(Bm[(size_t)t * k + p], x[(size_t)t * r + c], s);
+      s = warp_sum(s);
+      if (lane == 0) ws[p * r + c] = rhs_C[p * r + c] - s;
+    }
+  }
+}
+
+// After the border's solve (ws = w, behind a barrier): w out, and x -=
+// (T^{-1} B) w, one row of x per thread. No barrier.
+__device__ __forceinline__ void border_update(const double* Tinv_B,
+                                              const double* ws, double* x,
+                                              double* w, int rows, int k,
+                                              int r) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < k * r; e += kThreads) w[e] = ws[e];
+  for (int t = tid; t < rows; t += kThreads) {
+    for (int c = 0; c < r; ++c) {
+      double acc = 0.0;
+      for (int q = 0; q < k; ++q)
+        acc = fma(Tinv_B[(size_t)t * k + q], ws[q * r + c], acc);
+      x[(size_t)t * r + c] -= acc;
+    }
+  }
+}
+
 // (__launch_bounds__'s 1 as for the factor: gemm()'s register tile.)
 __global__ void __launch_bounds__(kThreads, 1)
 btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
@@ -703,8 +752,6 @@ btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
                  int N, int nb, int k, int r) {
   extern __shared__ double smem[];
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const size_t b = blockIdx.x;
   const size_t bsz = (size_t)nb * nb;
   S_lu += b * N * bsz;
@@ -738,9 +785,9 @@ btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
     x[e] = v;
   }
   for (int i = 1; i < N; ++i) {
-    lu_solve<false, false>(S_lu + (i - 1) * bsz, nb,
-                           S_piv + (size_t)(i - 1) * nb, nb, Ya, r, r, tiles,
-                           nullptr, nullptr, piv_s);
+    lu_solve<true, false>(S_lu + (i - 1) * bsz, nb,
+                          S_piv + (size_t)(i - 1) * nb, nb, Ya, r, r, tiles,
+                          tiles, nullptr, piv_s);
     gemm(nb, r, nb, L + (i - 1) * bsz, nb, Ya, r, tiles,
          FwdEpi{Yb, x + (size_t)i * nr, rhs_T + (size_t)i * nr, r});
     double* t = Ya;
@@ -753,8 +800,8 @@ btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
     double* xi = x + (size_t)i * nr;
     if (i + 1 < N)
       gemm(r, nb, nb, Yb, nb, L + i * bsz, nb, tiles, BackEpi{Ya, xi, r});
-    lu_solve<false, false>(S_lu + i * bsz, nb, S_piv + (size_t)i * nb, nb,
-                           Ya, r, r, tiles, nullptr, nullptr, piv_s);
+    lu_solve<true, false>(S_lu + i * bsz, nb, S_piv + (size_t)i * nb, nb,
+                          Ya, r, r, tiles, tiles, nullptr, piv_s);
     for (int e = tid; e < nr; e += kThreads) xi[e] = Ya[e];
     if (i > 0)
       for (int q = 0; q < r; ++q)
@@ -763,28 +810,296 @@ btb_solve_kernel(const double* __restrict__ S_lu, const int* __restrict__ S_piv,
     __syncthreads();
   }
   if (k == 0) return;
-  // the border: w = Sb^{-1} (rhs_C - sum_i B_i^T x_i), warps over w's rows,
-  // lanes over the N nb rows of x; then x -= (T^{-1} B) w, a row per thread
-  for (int p = warp; p < k; p += kWarps) {
-    for (int c = 0; c < r; ++c) {
-      double s = 0.0;
-      for (int t = lane; t < N * nb; t += 32)
-        s = fma(Bm[(size_t)t * k + p], x[(size_t)t * r + c], s);
-      s = warp_sum(s);
-      if (lane == 0) ws[p * r + c] = rhs_C[p * r + c] - s;
-    }
-  }
+  border_rhs(Bm, rhs_C, x, ws, N * nb, k, r);
   lu_solve<false, false>(Sb_lu, k, Sb_piv, k, ws, r, r, tiles, nullptr,
-                         nullptr, piv_s);
-  for (int e = tid; e < k * r; e += kThreads) w[e] = ws[e];
-  for (int t = tid; t < N * nb; t += kThreads) {
-    for (int c = 0; c < r; ++c) {
-      double acc = 0.0;
-      for (int q = 0; q < k; ++q)
-        acc = fma(Tinv_B[(size_t)t * k + q], ws[q * r + c], acc);
-      x[(size_t)t * r + c] -= acc;
+                         nullptr, piv_s);  // its first barrier: ws is whole
+  border_update(Tinv_B, ws, x, w, N * nb, k, r);
+}
+
+// ---- the solve's narrow kernel: few right-hand sides, narrow blocks
+
+constexpr int kNarrow = 8;       // the most right-hand sides it takes
+constexpr int kNarrowRows = 64;  // the widest block (and border) it takes
+// a block's right-hand sides, nb x r, as elements a thread
+constexpr int kRhsPerThread = kNarrowRows * kNarrow / kThreads;
+
+// What a thread of the narrow solve stages: the elements tid + 256 t of
+// an nb x nb block, their row and column advancing by the constant steps
+// (256 / nb, 256 % nb), divided out once per launch.
+struct StageMap {
+  int row0, col0, q, rm;
+  __device__ StageMap(int nb)
+      : row0(threadIdx.x / nb), col0(threadIdx.x % nb), q(kThreads / nb),
+        rm(kThreads % nb) {}
+};
+
+// d1 <- s1 and, when s2 is not null, d2 <- s2: contiguous nb x nb blocks
+// in device memory into shared memory with leading dimension ldd. Eight
+// elements of each block at a time, all their loads issued before their
+// stores, so that a step waits for device memory about once. No barrier.
+__device__ __forceinline__ void stage_blocks(double* d1,
+                                             const double* __restrict__ s1,
+                                             double* d2,
+                                             const double* __restrict__ s2,
+                                             int nb, int ldd,
+                                             const StageMap& sm) {
+  constexpr int kChunk = 8;
+  const int total = nb * nb;
+  int row = sm.row0, col = sm.col0;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kChunk * kThreads) {
+    double a[kChunk], b[kChunk];
+    int at[kChunk];
+#pragma unroll
+    for (int t = 0; t < kChunk; ++t) {
+      const int e = e0 + t * kThreads;
+      const bool in = e < total;
+      at[t] = in ? row * ldd + col : -1;
+      a[t] = in ? s1[e] : 0.0;
+      b[t] = in && s2 != nullptr ? s2[e] : 0.0;
+      col += sm.rm;
+      row += sm.q;
+      if (col >= nb) {
+        col -= nb;
+        ++row;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kChunk; ++t) {
+      if (at[t] >= 0) {
+        d1[at[t]] = a[t];
+        if (s2 != nullptr) d2[at[t]] = b[t];
+      }
     }
   }
+}
+
+// epi(row, c, (A X)[row][c]) for row < m and c < n <= kNarrow, A[row][j] at
+// A[row * rs + j * cs] ((rs, cs) = (lda, 1) for A, (1, lda) for A^T), X
+// (kk x n, leading dimension ldx), both in shared memory. A group of g
+// lanes (a power of two up to 32: the most that still gives every row its
+// group in one pass of the block) shares an output row: each lane sums
+// every g-th term and the group adds its sums by shuffles, so the
+// dependent chain is kk / g fma's and log2 g shuffles. No barrier.
+template <class Epi>
+__device__ __forceinline__ void gemm_rows(int m, int n, int kk,
+                                          const double* A, int rs, int cs,
+                                          const double* X, int ldx,
+                                          const Epi& epi) {
+  int lg = 5;  // log2 g
+  while (lg > 0 && (kThreads >> lg) < m) --lg;
+  const int g = 1 << lg;
+  const int sub = threadIdx.x & (g - 1);
+  for (int base = 0; base < m; base += kThreads >> lg) {  // block-uniform
+    const int row = base + (threadIdx.x >> lg);
+    const double* a = A + (size_t)row * rs;
+    double acc[kNarrow];
+#pragma unroll
+    for (int c = 0; c < kNarrow; ++c) acc[c] = 0.0;
+    if (row < m) {
+#pragma unroll 4
+      for (int j = sub; j < kk; j += g) {
+        const double v = a[(size_t)j * cs];
+        const double* xj = X + (size_t)j * ldx;
+#pragma unroll
+        for (int c = 0; c < kNarrow; ++c)
+          if (c < n) acc[c] = fma(v, xj[c], acc[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kNarrow; ++c) {
+      if (c < n) {  // uniform: every lane takes part in the shuffles
+        for (int o = g >> 1; o > 0; o >>= 1)
+          acc[c] += __shfl_xor_sync(kFull, acc[c], o);
+        if (row < m && sub == 0) epi(row, c, acc[c]);
+      }
+    }
+  }
+}
+
+// X (n x w, n <= kNarrowRows, w <= kNarrow, leading dimension w) <- A^{-1}
+// X for A = P L U as lu_factor stores it (leading dimension lda; in shared
+// memory, or in device memory for the border's block), with the 0-based
+// pivots piv_s that the caller put in shared memory before a barrier. One
+// warp per column and no block barrier: lane l holds rows l and l + 32 in
+// registers; each swap is two shuffles, each substitution step one
+// shuffle and two fma's, with no branch (a row that the step does not
+// change subtracts 0 x_j); the upper triangle is first made unit (each
+// lane scales its rows by the reciprocals of their diagonal entries). The
+// caller ends the phase with a barrier.
+__device__ __forceinline__ void lu_solve_warp(const double* LU, int lda,
+                                              const int* piv_s, int n,
+                                              double* X, int w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp >= w) return;  // warp-uniform
+  const int r1 = lane + 32;
+  const bool in0 = lane < n, in1 = r1 < n;
+  double x0 = in0 ? X[(size_t)lane * w + warp] : 0.0;
+  double x1 = in1 ? X[(size_t)r1 * w + warp] : 0.0;
+  auto row = [&](int j) {  // row j's value, in every lane (j uniform)
+    return __shfl_sync(kFull, j < 32 ? x0 : x1, j & 31);
+  };
+  for (int j = 0; j < n; ++j) {
+    const int p = piv_s[j];
+    if (p != j) {  // uniform
+      const double vj = row(j), vp = row(p);
+      if (lane == (j & 31)) {
+        if (j < 32) x0 = vp; else x1 = vp;
+      }
+      if (lane == (p & 31)) {
+        if (p < 32) x0 = vj; else x1 = vj;
+      }
+    }
+  }
+  const double* t0 = LU + (size_t)lane * lda;
+  const double* t1 = LU + (size_t)r1 * lda;
+#pragma unroll 4
+  for (int j = 0; j + 1 < n; ++j) {  // unit lower
+    const double a0 = lane > j && in0 ? t0[j] : 0.0;
+    const double a1 = r1 > j && in1 ? t1[j] : 0.0;
+    const double xj = row(j);
+    x0 = fma(-a0, xj, x0);
+    x1 = fma(-a1, xj, x1);
+  }
+  const double rd0 = in0 ? 1.0 / t0[lane] : 0.0;
+  const double rd1 = in1 ? 1.0 / t1[r1] : 0.0;
+  x0 *= rd0;
+  x1 *= rd1;
+#pragma unroll 4
+  for (int j = n - 1; j > 0; --j) {  // upper, made unit
+    const double a0 = lane < j ? t0[j] * rd0 : 0.0;
+    const double a1 = r1 < j ? t1[j] * rd1 : 0.0;
+    const double xj = row(j);
+    x0 = fma(-a0, xj, x0);
+    x1 = fma(-a1, xj, x1);
+  }
+  if (in0) X[(size_t)lane * w + warp] = x0;
+  if (in1) X[(size_t)r1 * w + warp] = x1;
+}
+
+// The solve for r <= kNarrow right-hand sides and nb, k <= kNarrowRows.
+// Each step first stages what it reads (S_i's LU and pivots, the L block,
+// the next right-hand sides) in one phase, so that a step waits for device
+// memory once; then one warp per column solves the block (lu_solve_warp),
+// and the product with L takes every thread. Three barrier phases a step.
+__global__ void __launch_bounds__(kThreads, 1)
+btb_solve_narrow_kernel(const double* __restrict__ S_lu,
+                        const int* __restrict__ S_piv,
+                        const double* __restrict__ L,
+                        const double* __restrict__ Bm,
+                        const double* __restrict__ Tinv_B,
+                        const double* __restrict__ Sb_lu,
+                        const int* __restrict__ Sb_piv,
+                        const double* __restrict__ rhs_T,
+                        const double* __restrict__ rhs_C, double* x,
+                        double* w, int N, int nb, int k, int r) {
+  extern __shared__ double smem[];
+  const int tid = threadIdx.x;
+  const size_t b = blockIdx.x;
+  const size_t bsz = (size_t)nb * nb;
+  S_lu += b * N * bsz;
+  S_piv += b * N * nb;
+  L += b * (N - 1) * bsz;
+  Bm += b * N * nb * k;
+  Tinv_B += b * N * nb * k;
+  Sb_lu += b * k * k;
+  Sb_piv += b * k;
+  rhs_T += b * N * nb * r;
+  rhs_C += b * k * r;
+  x += b * N * nb * r;
+  w += b * k * r;
+
+  // shared memory (btb_solve_smem_bytes): S_i's LU and the L block with
+  // odd leading dimensions; two nb x r buffers of right-hand sides, Ya the
+  // block under solution, Yb the next one; the border's k x r block; the
+  // pivots
+  const int lds = nb | 1;
+  const int nr = nb * r;
+  double* Ss = smem;
+  double* Ls = Ss + (size_t)nb * lds;
+  double* Ya = Ls + (size_t)nb * lds;
+  double* Yb = Ya + nr;
+  double* ws = Yb + nr;
+  int* piv_s = reinterpret_cast<int*>(ws + (size_t)k * r);
+  const StageMap sm(nb);
+
+  // forward sweep: y_0 = rhs_0, y_i = rhs_i - L_{i-1} S_{i-1}^{-1} y_{i-1},
+  // each y_i also to x_i
+  for (int e = tid; e < nr; e += kThreads) {
+    const double v = rhs_T[e];
+    Ya[e] = v;
+    x[e] = v;
+  }
+  for (int i = 1; i < N; ++i) {
+    // S_{i-1}, its pivots, L_{i-1} and rhs_i in: the small loads first,
+    // their stores after the blocks' loads
+    const int pv = tid < nb ? S_piv[(size_t)(i - 1) * nb + tid] - 1 : 0;
+    double yv[kRhsPerThread];
+#pragma unroll
+    for (int t = 0; t < kRhsPerThread; ++t) {
+      const int e = tid + t * kThreads;
+      yv[t] = e < nr ? rhs_T[(size_t)i * nr + e] : 0.0;
+    }
+    stage_blocks(Ss, S_lu + (i - 1) * bsz, Ls, L + (i - 1) * bsz, nb, lds,
+                 sm);
+    if (tid < nb) piv_s[tid] = pv;
+#pragma unroll
+    for (int t = 0; t < kRhsPerThread; ++t)
+      if (tid + t * kThreads < nr) Yb[tid + t * kThreads] = yv[t];
+    __syncthreads();
+    lu_solve_warp(Ss, lds, piv_s, nb, Ya, r);
+    __syncthreads();
+    gemm_rows(nb, r, nb, Ls, lds, 1, Ya, r,
+              FwdEpi{Yb, x + (size_t)i * nr, Yb, r});
+    __syncthreads();
+    double* t = Ya;
+    Ya = Yb;
+    Yb = t;
+  }
+  // back sweep: x_i = S_i^{-1} (y_i - L_i^T x_{i+1}), Ya holding y_{N-1},
+  // then x_{i+1}, which goes to device memory while S_i, L_i and y_i come
+  // in
+  for (int i = N - 1; i >= 0; --i) {
+    const bool last = i + 1 == N;
+    const int pv = tid < nb ? S_piv[(size_t)i * nb + tid] - 1 : 0;
+    double yv[kRhsPerThread];
+#pragma unroll
+    for (int t = 0; t < kRhsPerThread; ++t) {
+      const int e = tid + t * kThreads;
+      yv[t] = !last && e < nr ? x[(size_t)i * nr + e] : 0.0;
+    }
+    stage_blocks(Ss, S_lu + i * bsz, Ls, last ? nullptr : L + i * bsz, nb,
+                 lds, sm);
+    if (tid < nb) piv_s[tid] = pv;
+    if (!last) {
+#pragma unroll
+      for (int t = 0; t < kRhsPerThread; ++t) {
+        const int e = tid + t * kThreads;
+        if (e < nr) {
+          Yb[e] = yv[t];
+          x[(size_t)(i + 1) * nr + e] = Ya[e];
+        }
+      }
+    }
+    __syncthreads();
+    if (!last) {
+      gemm_rows(nb, r, nb, Ls, 1, lds, Ya, r, SubEpi{Yb, r});
+      __syncthreads();
+      double* t = Ya;
+      Ya = Yb;
+      Yb = t;
+    }
+    lu_solve_warp(Ss, lds, piv_s, nb, Ya, r);
+    __syncthreads();
+  }
+  for (int e = tid; e < nr; e += kThreads) x[e] = Ya[e];
+  __syncthreads();
+  if (k == 0) return;
+  border_rhs(Bm, rhs_C, x, ws, N * nb, k, r);
+  for (int j = tid; j < k; j += kThreads) piv_s[j] = Sb_piv[j] - 1;
+  __syncthreads();
+  lu_solve_warp(Sb_lu, k, piv_s, k, ws, r);
+  __syncthreads();
+  border_update(Tinv_B, ws, x, w, N * nb, k, r);
 }
 
 }  // namespace
@@ -819,12 +1134,34 @@ int btb_factor_f64(const double* D, const double* L, const double* Bm,
   return (int)cudaGetLastError();
 }
 
-// Shared memory (bytes) the solve asks for: gemm's tiles, two nb x r
-// blocks of right-hand sides, the border's k x r block, the pivots.
-size_t btb_solve_smem_bytes(int nb, int k, int r) {
+// Shared memory (bytes) of the wide solve (any r): gemm's tiles, two nb x
+// r blocks of right-hand sides, the border's k x r block, the pivots.
+static size_t wide_solve_smem_bytes(int nb, int k, int r) {
   const size_t mx = nb > k ? nb : k;
   return sizeof(double) * (kTileDoubles + (size_t)(2 * nb + k) * r) +
          sizeof(int) * mx;
+}
+
+// ... of the narrow solve (r <= kNarrow): two nb x nb blocks with odd
+// leading dimensions, then as the wide one without gemm's tiles.
+static size_t narrow_solve_smem_bytes(int nb, int k, int r) {
+  const size_t mx = nb > k ? nb : k;
+  return sizeof(double) *
+             (2 * (size_t)nb * (nb | 1) + (size_t)(2 * nb + k) * r) +
+         sizeof(int) * mx;
+}
+
+// Whether btb_solve_f64 takes the narrow kernel: at most kNarrow
+// right-hand sides, blocks and border at most kNarrowRows wide (its
+// shared memory, under 80 KB, then always fits).
+int btb_solve_narrow(int nb, int k, int r) {
+  return r <= kNarrow && nb <= kNarrowRows && k <= kNarrowRows;
+}
+
+// Shared memory (bytes) the solve asks for at these shapes.
+size_t btb_solve_smem_bytes(int nb, int k, int r) {
+  return btb_solve_narrow(nb, k, r) ? narrow_solve_smem_bytes(nb, k, r)
+                                    : wide_solve_smem_bytes(nb, k, r);
 }
 
 int btb_solve_f64(const double* S_lu, const int* S_piv, const double* L,
@@ -833,10 +1170,12 @@ int btb_solve_f64(const double* S_lu, const int* S_piv, const double* L,
                   double* x, double* w, int batch, int N, int nb, int k, int r,
                   void* stream) {
   const size_t smem = btb_solve_smem_bytes(nb, k, r);
+  auto kernel = btb_solve_narrow(nb, k, r) ? btb_solve_narrow_kernel
+                                           : btb_solve_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      btb_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  btb_solve_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       S_lu, S_piv, L, Bm, Tinv_B, Sb_lu, Sb_piv, rhs_T, rhs_C, x, w, N, nb, k,
       r);
   return (int)cudaGetLastError();

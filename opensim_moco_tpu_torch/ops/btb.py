@@ -36,7 +36,8 @@ MAX_NB = 738
 # panels (31-33, 63-65; 64 rows is also where a panel passes from one warp
 # to the whole block), 64-wide product tiles, the bound between its shared-
 # and device-memory modes (nb 109-112 for k = 4..0; 115, 116 and 200 in
-# device memory), N = 1 (no L block) and a border of 0
+# device memory), N = 1 (no L block) and a border of 0; nb 64/65 also
+# crosses the solve's choice between its narrow and its wide kernel
 EDGE_NBS = (1, 5, 31, 32, 33, 34, 63, 64, 65, 109, 110, 111, 112, 115, 116,
             200)
 EDGE_SHAPES = [(N, nb, k) for N in (1, 2, 16) for nb in EDGE_NBS
@@ -56,6 +57,8 @@ def _lib():
         lib.btb_factor_smem_bytes.restype = ctypes.c_size_t
         lib.btb_solve_smem_bytes.argtypes = [_I] * 3
         lib.btb_solve_smem_bytes.restype = ctypes.c_size_t
+        lib.btb_solve_narrow.argtypes = [_I] * 3
+        lib.btb_solve_narrow.restype = _I
         lib.btb_error_string.argtypes = [_I]
         lib.btb_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -84,6 +87,12 @@ def use_shared_memory(nb, k):
     """Whether the factor keeps its working blocks (the Schur block and the
     nb x (nb + k) right-hand sides) in shared memory."""
     return _lib().btb_factor_smem_bytes(nb, k, 1) <= SMEM_LIMIT
+
+
+def narrow_solve(nb, k, r):
+    """Whether the solve takes its narrow kernel (r <= 8 right-hand sides,
+    nb and k <= 64) or its wide one."""
+    return bool(_lib().btb_solve_narrow(nb, k, r))
 
 
 def btb_factor(D, L, B, C) -> BTBFac:

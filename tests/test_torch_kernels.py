@@ -104,7 +104,7 @@ def cuda_device():
 def test_k1_matches_plain_on_card(cuda_device, N, nb, k, r):
     """K1 against its plain version on the card (skipped without one), for
     one right-hand side in the main path's form (rhs_T (B, N, nb)) and for
-    2 and 9 columns."""
+    2 and 9 (one past the 8 that the solve's narrow kernel takes)."""
     Bt = 2
     blocks = [t.to(cuda_device) for t in
               _random_blocks(Bt, N, nb, k, seed=nb + 7 * N + k)]
