@@ -9,8 +9,8 @@ the bench's IPM options) and each ``kkt`` mode ("dense", "auto",
 * a ``torch.profiler`` trace of 3 further steps: kernel launches, the
   device's busy and idle share (busy = the union of the kernels' device
   intervals), the kernels with the most device time, and K1's (the
-  ``btb_*_kernel`` kernels of ``csrc/btb.cu``) device time and its share of
-  the busy time;
+  ``btb_factor_*kernel`` and ``btb_solve_*kernel`` kernels of
+  ``csrc/btb.cu``) device time and its share of the busy time;
 
 and, at the same 32 starting points, the derivative passes timed alone:
 dense ``vmap(jacfwd(c))`` and ``vmap(jacfwd(grad(L)))`` against the
@@ -104,7 +104,8 @@ def profile_mode(tr, Z0, z0, mode, dev="cuda"):
                for e in prof.key_averages() if e.self_device_time_total > 0]
     top = sorted(kernels, key=lambda r: -r[1])[:8]
     k1 = {name: (s, c) for name, s, c in kernels
-          if "btb_factor_kernel" in name or "btb_solve_kernel" in name}
+          if any(f"btb_{kind}" in name and "_kernel" in name
+                 for kind in ("factor", "solve"))}
     k1_s = sum(s for s, _ in k1.values())
     return {"mode": mode, "body_fn_s": s_iter,
             "profiled_steps": 3, "kernel_launches": launches,
