@@ -10,7 +10,7 @@ from __future__ import annotations
 from .models import MechModelBuilder
 from .models import muscle as dgf
 from .models.model import Model
-from .ocp import (FinalTimeGoal, InitialActivationGoal,
+from .ocp import (ControlGoal, FinalTimeGoal, InitialActivationGoal,
                   InitialForceEquilibriumGoal,
                   InitialVelocityEquilibriumDGFGoal, Problem, Study)
 
@@ -91,4 +91,29 @@ def hanging_muscle_study(num_mesh_intervals=25,
                              num_mesh_intervals=num_mesh_intervals,
                              multibody_dynamics_mode=multibody_dynamics_mode)
     study.set_ipm_options(tol=1e-4)
+    return study
+
+
+def kirk_min_effort_study(num_mesh_intervals=50, scheme="hermite-simpson"):
+    """Kirk 1998 example 5.1-1 (reference testMocoAnalytic.cpp): a unit
+    mass with a negative damper (F = +u) driven from rest at 0 to 5 m and
+    2 m/s in 2 s with minimum effort."""
+    b = MechModelBuilder(gravity=(0.0, 0.0, 0.0))
+    b.add_body("b", mass=1.0, joint_name="j", kind="prismatic",
+               axis=(1, 0, 0), coord_name="coord")
+    model = Model(b.finalize())
+    model.add_spring_generalized_force("damper", "coord", viscosity=-1.0)
+    model.add_coordinate_actuator("actuator", "coord", optimal_force=1.0)
+    model.finalize()
+
+    prob = Problem(model)
+    prob.set_time_bounds(0, 2)
+    prob.set_state_info("/jointset/j/coord/value", (-10, 10), 0, 5)
+    prob.set_state_info("/jointset/j/coord/speed", (-10, 10), 0, 2)
+    prob.set_control_info("/forceset/actuator", (-50, 50))
+    prob.add_goal(ControlGoal(name="effort", weight=0.5))
+
+    study = Study(prob)
+    study.set_solver_options(transcription_scheme=scheme,
+                             num_mesh_intervals=num_mesh_intervals)
     return study

@@ -11,10 +11,11 @@ Generalized forces from muscle paths come from ``torch.func.jvp`` /
 the JAX package. Every per-muscle selection is static (Python indices), so
 no index tensor is built per call and no unused branch is evaluated.
 
-Contacts, springs, external loads, custom control forces, wrapping,
-conditional/moving path points, kinematic constraints and prescribed
-motion are not ported yet: adding one raises ``NotImplementedError``
-(ROADMAP.md, queue 1).
+Springs/dampers on coordinates and kinematic constraints (with their
+Lagrange multipliers) are ported. Contacts, external loads, custom control
+forces, wrapping, conditional/moving path points and prescribed motion are
+not ported yet: adding one raises ``NotImplementedError`` (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -63,6 +64,17 @@ class CoordinateActuatorSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpringGeneralizedForceSpec:
+    """F = -stiffness (q - rest_length) - viscosity u on one coordinate
+    (OpenSim SpringGeneralizedForce; JAX ``models/model.py:47``)."""
+    name: str
+    coord: int
+    stiffness: float = 0.0
+    rest_length: float = 0.0
+    viscosity: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class MuscleSpec:
     """DeGrooteFregly2016 muscle on a path of fixed points
     ``("fixed", body, (x, y, z))``."""
@@ -82,6 +94,7 @@ class Model:
     def __init__(self, mech: MechModel):
         self.mech = mech
         self.actuators: list[CoordinateActuatorSpec] = []
+        self.springs: list[SpringGeneralizedForceSpec] = []
         self.muscles: list[MuscleSpec] = []
         self._muscle_params: list[dict] = []
         self.prescribed = False
@@ -123,8 +136,12 @@ class Model:
             float(max_control)))
         self._muscle_params.append(params)
 
-    def add_spring_generalized_force(self, *args, **kwargs):
-        _unported("SpringGeneralizedForce")
+    def add_spring_generalized_force(self, name, coord, stiffness=0.0,
+                                     rest_length=0.0, viscosity=0.0):
+        """JAX ``models/model.py:280``."""
+        ci = self.coord_index(coord) if isinstance(coord, str) else coord
+        self.springs.append(SpringGeneralizedForceSpec(
+            name, ci, float(stiffness), float(rest_length), float(viscosity)))
 
     def add_station_contact(self, *args, **kwargs):
         _unported("station contact")
@@ -247,6 +264,10 @@ class Model:
         if self.actuators:
             p["actuator_optimal_force"] = np.asarray(
                 [a.optimal_force for a in self.actuators])
+        if self.springs:  # JAX models/model.py:652-657
+            p["spring"] = {
+                key: np.asarray([getattr(s, key) for s in self.springs])
+                for key in ("stiffness", "rest_length", "viscosity")}
         return p
 
     def default_params(self, device="cuda", dtype=torch.float64) -> dict:
@@ -332,16 +353,30 @@ class Model:
 
     def tau_controls(self, p, x):
         """Generalized forces from coordinate actuators (linear in x)."""
-        cols = [torch.zeros_like(x[..., 0]) for _ in range(self.nq)]
+        cols = [x.new_zeros(x.shape[:-1]) for _ in range(self.nq)]
         gains = p.get("actuator_optimal_force")
         for j, a in enumerate(self.actuators):
             cols[a.coord] = cols[a.coord] + gains[j] * x[..., j]
         return torch.stack(cols, -1)
 
+    def spring_forces(self, p, q, u):
+        """Generalized forces of the springs/dampers (JAX
+        ``models/model.py:882-890``)."""
+        sp = p["spring"]
+        cols = [torch.zeros_like(q[..., 0]) for _ in range(self.nq)]
+        for j, s in enumerate(self.springs):
+            cols[s.coord] = cols[s.coord] + (
+                -sp["stiffness"][j] * (q[..., s.coord] - sp["rest_length"][j])
+                - sp["viscosity"][j] * u[..., s.coord])
+        return torch.stack(cols, -1)
+
     def applied_generalized_forces(self, p, t, q, u, z, x):
-        """Total applied generalized force f_app(t, y, x, p): actuators plus
-        muscle tensions mapped through the path-length Jacobian."""
+        """Total applied generalized force f_app(t, y, x, p): actuators,
+        springs, and muscle tensions mapped through the path-length
+        Jacobian."""
         tau = self.tau_controls(p, x)
+        if self.springs:
+            tau = tau + self.spring_forces(p, q, u)
         if not self.muscles:
             return tau
         path = lambda qq: self.path_lengths(p, qq)  # noqa: E731

@@ -361,7 +361,6 @@ def test_hanging_model_parity(variant):
 
 
 @pytest.mark.parametrize("method,args", [
-    ("add_spring_generalized_force", ("s", 0)),
     ("add_station_contact", ("c", 0, (0, 0, 0))),
     ("add_sphere_contact", ("c", 0, (0, 0, 0), 0.1)),
     ("add_external_force", ("e", 0, None, None)),
