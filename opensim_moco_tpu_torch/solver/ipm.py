@@ -35,8 +35,11 @@ Derivatives and KKT, as in the JAX package, with two levers:
   each regularization trial factors the KKT blocks with K1
   (``ops/btb.py``: the CUDA kernel on the card, its plain version on the
   CPU); otherwise one pivoted LU of the full (n+m) KKT
-  (``torch.linalg.lu_factor_ex``). Both report a singular factor through
-  NaN/inf in the solve rather than by raising.
+  (``torch.linalg.lu_factor_ex``), or, with
+  ``dense_factorization="chol-schur"``, Cholesky of H + Sigma + delta_w I
+  and of the Schur complement J (H + Sigma + delta_w I)^-1 J^T +
+  delta_c I. Each reports a singular or indefinite factor through NaN/inf
+  in its own lane's solve rather than by raising.
 
 Host synchronisation: the solve loop reads one flag per iteration (are all
 lanes done?) and the regularization loop one per trial (does any lane
@@ -60,6 +63,7 @@ from .nlp import NLP
 from .structured import (BlockDerivatives, BTBFac, assemble_kkt_blocks,
                          block_H_diag, block_H_matvec, dense_H_from_blocks,
                          dense_J_from_blocks, pack_rhs, unpack_sol)
+from .structured import cholesky_factor as _cholesky
 from .structured import lu_factor as _lu_factor
 
 FILTER_SIZE = 64
@@ -97,7 +101,7 @@ class IPMOptions:
     eta_phi: float = 1e-8
     kkt: str = "auto"  # | "dense" | "structured"
     kkt_structured_min_dim: int = 1200
-    dense_factorization: str = "lu"  # "chol-schur" is not ported yet
+    dense_factorization: str = "lu"  # | "chol-schur"
     init_multipliers: str = "least-squares"  # | "zero"
     kkt_refine_iters: int = 0
 
@@ -162,9 +166,6 @@ def _validate(opt: IPMOptions):
     if opt.dense_factorization not in ("lu", "chol-schur"):
         raise ValueError(f"dense_factorization must be lu|chol-schur, got "
                          f"{opt.dense_factorization!r}")
-    if opt.dense_factorization == "chol-schur":
-        raise NotImplementedError("dense_factorization='chol-schur' is not "
-                                  "ported yet (ROADMAP.md, queue 1)")
 
 
 def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
@@ -499,6 +500,40 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
             def kkt_solve(fac, r1, r2):
                 x, w = k1.btb_solve(fac, *pack_rhs(r1, r2, ix))
                 return unpack_sol(x, w, ix)
+        elif opt.dense_factorization == "chol-schur":
+            # pivot-free quasi-definite factorization (JAX
+            # solver/ipm.py:607-647): Lh = chol(Hd), Y = Lh^-1 J^T,
+            # Ls = chol(Y^T Y + delta_c I). An indefinite Hd gives a NaN
+            # factor in its lane and the regularization loop escalates
+            # delta there, like an IPOPT inertia correction.
+            H = W + torch.diag_embed(Sig)
+            tri = torch.linalg.solve_triangular
+
+            def H_mv(v):
+                return (H @ v.unsqueeze(-1)).squeeze(-1)
+
+            def kkt_factor(delta_w):
+                Lh = _cholesky(H + delta_w[:, None, None] * eye_n)
+                if not m:
+                    return Lh, Lh.new_zeros((B, n, 0)), Lh.new_zeros(
+                        (B, 0, 0))
+                Y = tri(Lh, J.transpose(-1, -2), upper=False)
+                S = Y.transpose(-1, -2) @ Y + \
+                    delta_c[:, None, None] * eye_m
+                return Lh, Y, _cholesky(S)
+
+            def kkt_solve(fac, r1, r2):
+                Lh, Y, Ls = fac
+                w = tri(Lh, r1.unsqueeze(-1), upper=False)
+                if not m:
+                    dz = tri(Lh.transpose(-1, -2), w, upper=True)
+                    return dz.squeeze(-1), r2
+                # (J Hd^-1 J^T + delta_c I) dnu = Y^T w - r2
+                rhs = Y.transpose(-1, -2) @ w - r2.unsqueeze(-1)
+                t = tri(Ls, rhs, upper=False)
+                dnu = tri(Ls.transpose(-1, -2), t, upper=True)
+                dz = tri(Lh.transpose(-1, -2), w - Y @ dnu, upper=True)
+                return dz.squeeze(-1), dnu.squeeze(-1)
         else:
             H = W + torch.diag_embed(Sig)
 

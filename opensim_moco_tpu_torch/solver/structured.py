@@ -57,6 +57,24 @@ def lu_factor(K):
     return LU, piv
 
 
+def cholesky_factor(K):
+    """Lower Cholesky factor of a batch (..., k, k); a matrix that is not
+    positive definite gives an all-NaN factor in its own slot and no
+    exception, as ``jnp.linalg.cholesky`` does (the regularization loop
+    reads the NaN step as "raise delta").
+
+    On the CPU the batch is factored one matrix at a time, as
+    :func:`lu_factor` does; on CUDA one batched call."""
+    if K.device.type == "cpu":
+        flat = K.reshape((-1,) + K.shape[-2:])
+        facs = [torch.linalg.cholesky_ex(k) for k in flat]
+        L = torch.stack([f[0] for f in facs]).reshape(K.shape)
+        info = torch.stack([f[1] for f in facs]).reshape(K.shape[:-2])
+    else:
+        L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[..., None, None], torch.nan, L)
+
+
 def _seeded_jvp(fn, z, seeds, n_blocks):
     """Tangents of ``fn`` at z (B, n) along each seed (S, n): (B, S, out).
 

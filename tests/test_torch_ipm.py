@@ -193,7 +193,6 @@ def test_options_match_jax():
 
 
 @pytest.mark.parametrize("opts,err", [
-    (dict(dense_factorization="chol-schur"), NotImplementedError),
     (dict(kkt="btb"), ValueError),
     (dict(dense_factorization="qr"), ValueError),
 ])
