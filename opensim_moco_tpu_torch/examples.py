@@ -7,6 +7,8 @@ signatures and the same problems; each returns a ready-to-solve
 
 from __future__ import annotations
 
+import numpy as np
+
 from .models import MechModelBuilder
 from .models import muscle as dgf
 from .models.model import Model
@@ -112,6 +114,49 @@ def kirk_min_effort_study(num_mesh_intervals=50, scheme="hermite-simpson"):
     prob.set_state_info("/jointset/j/coord/speed", (-10, 10), 0, 2)
     prob.set_control_info("/forceset/actuator", (-50, 50))
     prob.add_goal(ControlGoal(name="effort", weight=0.5))
+
+    study = Study(prob)
+    study.set_solver_options(transcription_scheme=scheme,
+                             num_mesh_intervals=num_mesh_intervals)
+    return study
+
+
+def double_pendulum_swingup_study(num_mesh_intervals=25,
+                                  scheme="hermite-simpson",
+                                  with_path_constraint=False):
+    """Double-pendulum swing-up with torque actuators (reference
+    testMocoInterface.cpp double pendulum; the BASELINE configuration adds
+    a control-effort goal and optionally a path constraint on the elbow
+    angle): from hanging at rest to inverted at rest in 1 s."""
+    b = MechModelBuilder(gravity=(0, -9.81, 0))
+    b.add_body("link1", mass=1.0, com=(0, -0.5, 0),
+               inertia=np.diag([0, 0, 1.0 / 12.0]), joint_name="j0",
+               kind="revolute", axis=(0, 0, 1), coord_name="q0")
+    b.add_body("link2", mass=1.0, com=(0, -0.5, 0),
+               inertia=np.diag([0, 0, 1.0 / 12.0]), parent="link1",
+               joint_name="j1", kind="revolute", axis=(0, 0, 1),
+               tree_r=(0, -1.0, 0), coord_name="q1")
+    model = Model(b.finalize())
+    model.add_coordinate_actuator("tau0", "q0", optimal_force=1.0,
+                                  min_control=-100, max_control=100)
+    model.add_coordinate_actuator("tau1", "q1", optimal_force=1.0,
+                                  min_control=-100, max_control=100)
+    model.finalize()
+
+    prob = Problem(model)
+    prob.set_time_bounds(0, 1.0)
+    # start hanging at rest; end inverted (tip up): q0 = pi, q1 = 0
+    prob.set_state_info("/jointset/j0/q0/value", (-10, 10), 0, np.pi)
+    prob.set_state_info("/jointset/j1/q1/value", (-10, 10), 0, 0)
+    prob.set_state_info("/jointset/j0/q0/speed", (-50, 50), 0, 0)
+    prob.set_state_info("/jointset/j1/q1/speed", (-50, 50), 0, 0)
+    prob.add_goal(ControlGoal(name="effort", weight=0.001))
+    if with_path_constraint:
+        # keep the elbow angle within [-2, 2] along the path
+        def elbow_limit(rep, t, y, x, lam, p):
+            return y[..., rep.state_index("/jointset/j1/q1/value")]
+
+        prob.add_path_constraint("elbow_range", elbow_limit, -2.0, 2.0)
 
     study = Study(prob)
     study.set_solver_options(transcription_scheme=scheme,

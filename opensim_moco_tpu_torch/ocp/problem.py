@@ -2,13 +2,18 @@
 
 Counterpart of ``opensim_moco_tpu.ocp.problem`` (MocoProblem /
 MocoProblemRep): name -> index resolution and bounds in system order, all
-host-side numpy. Path constraints and optimizable parameters are not
-ported yet (ROADMAP.md, queue 1).
+host-side numpy, plus path constraints and optimizable parameters.
+
+User callables take the port's tensors with leading dimensions, as the
+goals do: a path constraint's ``fn(rep, t, y, x, lam, p)`` gets t (..., P),
+y (..., P, ny), x (..., P, nx), lam (..., P, nlam) at the P mesh points
+and returns (..., P, k) (or (..., P) for one component).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 
@@ -40,6 +45,29 @@ def _info(bounds, initial, final):
                         None if final is None else _as_bounds(final))
 
 
+@dataclasses.dataclass
+class PathConstraintSpec:
+    """g_L <= g(t, y, x, lam, p) <= g_U at every mesh point
+    (MocoPathConstraint; JAX ``ocp/problem.py:45``)."""
+    name: str
+    fn: Callable  # (rep, t, y, x, lam, p) -> (..., P, k)
+    lower: np.ndarray
+    upper: np.ndarray
+
+
+@dataclasses.dataclass
+class ParameterSpec:
+    """Optimizable time-invariant model parameter (MocoParameter; JAX
+    ``ocp/problem.py:55``). ``apply(params, theta)`` returns the parameter
+    dict with the scalar tensor ``theta`` put in; it runs under
+    ``torch.func`` transforms, so it must not write in place: build the
+    new entry with ``torch.cat``/``torch.where`` and return new dicts."""
+    name: str
+    bounds: tuple
+    apply: Callable  # (params dict, theta scalar tensor) -> params dict
+    initial_value: float | None = None
+
+
 class Problem:
     """User-facing problem builder (MocoProblem analogue)."""
 
@@ -50,6 +78,8 @@ class Problem:
         self.state_infos: dict[str, VariableInfo] = {}
         self.control_infos: dict[str, VariableInfo] = {}
         self.goals: list[Goal] = []
+        self.path_constraints: list[PathConstraintSpec] = []
+        self.parameters: list[ParameterSpec] = []
         self.multiplier_bounds = (-1000.0, 1000.0)
 
     def set_time_bounds(self, initial, final):
@@ -66,13 +96,19 @@ class Problem:
         self.goals.append(goal)
         return goal
 
-    def add_path_constraint(self, *args, **kwargs):
-        raise NotImplementedError("path constraints are not ported yet "
-                                  "(ROADMAP.md, queue 1)")
+    def add_path_constraint(self, name, fn, lower, upper=None):
+        """JAX ``ocp/problem.py:112``: equality where ``upper`` is None or
+        equals ``lower``, otherwise a slack per mesh point."""
+        lower = np.atleast_1d(np.asarray(lower, dtype=float))
+        upper = (lower if upper is None
+                 else np.atleast_1d(np.asarray(upper, dtype=float)))
+        self.path_constraints.append(PathConstraintSpec(name, fn, lower,
+                                                        upper))
 
-    def add_parameter(self, *args, **kwargs):
-        raise NotImplementedError("optimizable parameters are not ported yet "
-                                  "(ROADMAP.md, queue 1)")
+    def add_parameter(self, name, bounds, apply, initial_value=None):
+        """JAX ``ocp/problem.py:119``."""
+        self.parameters.append(ParameterSpec(name, _as_bounds(bounds), apply,
+                                             initial_value))
 
     def create_rep(self) -> "ProblemRep":
         return ProblemRep(self)
@@ -94,9 +130,9 @@ class ProblemRep:
         self.nx = len(self.control_names)
         self.nlam = self.model.nphi
         self.goals = problem.goals
-        self.path_constraints = []
-        self.parameters = []
-        self.np = 0
+        self.path_constraints = problem.path_constraints
+        self.parameters = problem.parameters
+        self.np = len(self.parameters)
 
         dlo, dhi = self.model.default_state_bounds()
         self.y_lo, self.y_hi = dlo.copy(), dhi.copy()
@@ -126,6 +162,24 @@ class ProblemRep:
         self.t0_bounds = problem.time_initial
         self.tf_bounds = problem.time_final
         self.lam_bounds = problem.multiplier_bounds
-        self.param_lo = np.zeros(0)
-        self.param_hi = np.zeros(0)
-        self.param_init = np.zeros(0)
+        # parameter bounds and initial values (JAX ocp/problem.py:190-196)
+        self.param_lo = np.array([p.bounds[0] for p in self.parameters])
+        self.param_hi = np.array([p.bounds[1] for p in self.parameters])
+        self.param_init = np.array([
+            p.initial_value if p.initial_value is not None
+            else 0.5 * (p.bounds[0] + p.bounds[1])
+            for p in self.parameters])
+
+    def apply_parameters(self, theta, params):
+        """``params`` (the model's parameter dict) with the decision
+        parameters ``theta`` (np,) applied in order (JAX
+        ``ocp/problem.py:198``)."""
+        for k, spec in enumerate(self.parameters):
+            params = spec.apply(params, theta[..., k])
+        return params
+
+    def state_index(self, name):
+        return self.state_names.index(name)
+
+    def control_index(self, name):
+        return self.control_names.index(name)

@@ -18,6 +18,10 @@ The NLP functions accept decision vectors with any leading dimensions,
 ``(..., n) -> (..., m)`` and ``(..., n) -> (...)``: the DAE is evaluated on
 the whole grid by broadcasting, and the same code serves one lane, a batch
 of lanes, a batch of line-search candidates, and ``torch.func`` transforms.
+With optimizable parameters the model's parameter dict differs per
+decision vector, so the functions then ``torch.func.vmap`` over the
+leading dimensions and each evaluation sees one vector (the JAX package's
+per-lane semantics).
 """
 
 from __future__ import annotations
@@ -94,7 +98,11 @@ class Transcription:
             self.mid_idx = np.arange(0)
         self.taus = taus
         self.G = len(taus)
-        self.n_gamma = 0  # no kinematic constraints in the port yet
+        # velocity-correction slacks only exist for HS + constraint
+        # derivatives (JAX transcription.py:118-120)
+        self.n_gamma = (self.nlam if (self.hermite_simpson and self.nlam and
+                                      options.enforce_constraint_derivatives)
+                        else 0)
 
         w = np.zeros(self.G)
         dtau = np.diff(mesh)
@@ -109,9 +117,13 @@ class Transcription:
                 w[i + 1] += h / 2.0
         self.quad_w = w
 
+        # a slack per two-sided path-constraint component and mesh point
+        # (JAX transcription.py:137-144)
         self.n_pc_points = len(self.mesh_idx)
-        self.pc_slack_specs = []
-        self.n_pc_slack = 0
+        self.pc_slack_specs = [
+            (pi, k) for pi, pc in enumerate(rep.path_constraints)
+            for k in range(len(pc.lower)) if pc.lower[k] != pc.upper[k]]
+        self.n_pc_slack = len(self.pc_slack_specs) * self.n_pc_points
 
         for g in rep.goals:
             if hasattr(g, "auto_outputs"):
@@ -204,6 +216,9 @@ class Transcription:
         lb[o["controls"][0]:o["controls"][1]] = Xlo.ravel()
         ub[o["controls"][0]:o["controls"][1]] = Xhi.ravel()
 
+        if self.nlam:
+            lb[o["multipliers"][0]:o["multipliers"][1]] = rep.lam_bounds[0]
+            ub[o["multipliers"][0]:o["multipliers"][1]] = rep.lam_bounds[1]
         if self.nderiv:
             dlo = []
             dhi = []
@@ -218,6 +233,20 @@ class Transcription:
                 self.n_zeta
             lb[o["derivs"][0]:o["derivs"][1]] = np.tile(dlo, self.G)
             ub[o["derivs"][0]:o["derivs"][1]] = np.tile(dhi, self.G)
+        if self.n_gamma:
+            lb[o["gamma"][0]:o["gamma"][1]] = \
+                self.opt.velocity_correction_bounds[0]
+            ub[o["gamma"][0]:o["gamma"][1]] = \
+                self.opt.velocity_correction_bounds[1]
+        # path-constraint slacks take the constraint's bounds
+        # (JAX transcription.py:263-267)
+        k = 0
+        for (pi, comp) in self.pc_slack_specs:
+            pc = rep.path_constraints[pi]
+            for _ in range(self.n_pc_points):
+                lb[o["pc_slack"][0] + k] = pc.lower[comp]
+                ub[o["pc_slack"][0] + k] = pc.upper[comp]
+                k += 1
         k = 0
         for gi in self.ec_slack_specs:
             g = self.ec_goals[gi]
@@ -225,6 +254,9 @@ class Transcription:
                 lb[o["ec_slack"][0] + k] = g.constraint_bounds[0]
                 ub[o["ec_slack"][0] + k] = g.constraint_bounds[1]
                 k += 1
+        if self.npar:
+            lb[o["params"][0]:o["params"][1]] = rep.param_lo
+            ub[o["params"][0]:o["params"][1]] = rep.param_hi
         return lb, ub
 
     # ----------------------------------------------------------- dynamics
@@ -272,41 +304,123 @@ class Transcription:
                  D[..., -1, :])
         return initial, final
 
+    def _per_lane(self, fn):
+        """``fn`` over any leading dims. Without parameters the functions
+        broadcast; with parameters each decision vector carries its own
+        model parameters, so ``fn`` is ``vmap``ped over one vector at a
+        time."""
+        if not self.npar:
+            return fn
+
+        def lanes(z):
+            lead = z.shape[:-1]
+            out = torch.func.vmap(fn)(z.reshape(-1, z.shape[-1]))
+            return out.reshape(lead + out.shape[1:])
+
+        return lanes
+
+    def _at_mesh(self, a):
+        """The mesh points of a grid-major (..., G, k) tensor."""
+        return a[..., ::2, :] if self.hermite_simpson else a
+
+    def _kc_errors(self, p, q, u, udot):
+        """phi, phidot = G u and phiddot = d/dt (G u) at the mesh points,
+        each (..., P, nlam) (JAX transcription.py:323-334); without
+        constraint derivatives only phi."""
+        m = self.rep.model
+
+        def phi(qq):
+            return m.phi(p, qq)
+
+        if not self.opt.enforce_constraint_derivatives:
+            return [phi(q)]
+
+        def phidot(qq, uu):
+            return torch.func.jvp(phi, (qq,), (uu,))[1]
+
+        phiddot = torch.func.jvp(phidot, (q, u), (u, udot))[1]
+        return [phi(q), phidot(q, u), phiddot]
+
     # ---------------------------------------------------------- constraints
     def constraints_fn(self, device="cuda", dtype=torch.float64):
-        """``c(z)``: defects, algebraic residuals and endpoint-constraint
-        rows, in the JAX package's row order."""
+        """``c(z)``: in the JAX package's row order, the midpoint-manifold
+        rows (Hermite-Simpson with kinematic constraints), the defects, the
+        algebraic residuals, the kinematic-constraint errors, the path
+        constraints and the endpoint-constraint rows."""
         rep = self.rep
+        m = rep.model
         C = self._constants(device, dtype)
-        p = C["p"]
+        nq = self.nq
 
         def constraints(z):
             t0, tf, Y, X, L, D, Gm, pcs, ecs, theta = self.unpack(z)
+            p = rep.apply_parameters(theta, C["p"])
             dt = (tf - t0).unsqueeze(-1)
             ts = t0.unsqueeze(-1) + dt * C["taus"]
             h = dt * C["dmesh"]
             F, ALG, UDOT = self._pointwise(p, ts, Y, X, L, D)
             lead = z.shape[:-1]
+
+            def flat(a):
+                return a.reshape(lead + (-1,))
+
             out = []
             if self.hermite_simpson:
                 y0, y1, ym = Y[..., 0:-1:2, :], Y[..., 2::2, :], Y[..., 1::2, :]
                 f0, f1, fm = F[..., 0:-1:2, :], F[..., 2::2, :], F[..., 1::2, :]
                 hcol = h.unsqueeze(-1)
                 hermite = ym - 0.5 * (y0 + y1) - hcol / 8.0 * (f0 - f1)
+                if self.n_gamma:
+                    # Posa velocity correction on the q rows, qbar =
+                    # hermite(q) + G(qbar)^T gamma, with the corrected
+                    # midpoint pinned to the manifold, phi(qbar) = 0
+                    # (JAX transcription.py:407-420)
+                    qmid = ym[..., :nq]
+                    Gt_gamma = m.constraint_jacobian_T(p, qmid, Gm)
+                    hermite = hermite - torch.cat(
+                        [Gt_gamma, torch.zeros_like(hermite[..., nq:])], -1)
+                    out.append(flat(m.phi(p, qmid)))
                 simpson = y1 - y0 - hcol / 6.0 * (f0 + 4.0 * fm + f1)
-                out.append(hermite.reshape(lead + (-1,)))
-                out.append(simpson.reshape(lead + (-1,)))
+                out.append(flat(hermite))
+                out.append(flat(simpson))
                 if self.nx and self.opt.interpolate_control_midpoints:
                     xm = X[..., 1::2, :] - 0.5 * (X[..., 0:-1:2, :] +
                                                   X[..., 2::2, :])
-                    out.append(xm.reshape(lead + (-1,)))
+                    out.append(flat(xm))
             else:
                 y0, y1 = Y[..., :-1, :], Y[..., 1:, :]
                 f0, f1 = F[..., :-1, :], F[..., 1:, :]
                 trap = y1 - y0 - 0.5 * h.unsqueeze(-1) * (f0 + f1)
-                out.append(trap.reshape(lead + (-1,)))
+                out.append(flat(trap))
             if ALG.shape[-1]:
-                out.append(ALG.reshape(lead + (-1,)))
+                out.append(flat(ALG))
+            if self.nlam:
+                # kinematic-constraint errors at the mesh points
+                # (JAX transcription.py:439-447)
+                Ym = self._at_mesh(Y)
+                out += [flat(e) for e in self._kc_errors(
+                    p, Ym[..., :nq], Ym[..., nq:2 * nq],
+                    self._at_mesh(UDOT))]
+            if rep.path_constraints:
+                # path constraints at the mesh points, minus a slack when
+                # two-sided (JAX transcription.py:449-465)
+                P = self.n_pc_points
+                tm = ts[..., ::2] if self.hermite_simpson else ts
+                Ym, Xm, Lm = (self._at_mesh(a) for a in (Y, X, L))
+                spos = 0
+                for pc in rep.path_constraints:
+                    vals = pc.fn(rep, tm, Ym, Xm, Lm, p)
+                    if vals.dim() == tm.dim():
+                        vals = vals.unsqueeze(-1)
+                    vals = vals.expand(lead + (P, len(pc.lower)))
+                    for k in range(len(pc.lower)):
+                        col = vals[..., k]
+                        if pc.lower[k] == pc.upper[k]:
+                            out.append(col - pc.lower[k])
+                        else:
+                            out.append(col - pcs[..., spos * P:
+                                                 (spos + 1) * P])
+                            spos += 1
             if self.ec_goals:
                 initial, final = self._endpoints(ts, Y, X, L, D)
                 spos = 0
@@ -320,19 +434,19 @@ class Transcription:
                         out.append(vals - g.constraint_bounds[0])
             return torch.cat(out, -1)
 
-        return constraints
+        return self._per_lane(constraints)
 
     # ------------------------------------------------------------ objective
     def objective_fn(self, device="cuda", dtype=torch.float64):
-        """``f(z)``: weighted cost goals plus the optional implicit-
-        derivative penalties."""
+        """``f(z)``: weighted cost goals plus the optional multiplier and
+        implicit-derivative penalties."""
         rep = self.rep
         C = self._constants(device, dtype)
-        p = C["p"]
         opt = self.opt
 
         def objective(z):
             t0, tf, Y, X, L, D, Gm, pcs, ecs, theta = self.unpack(z)
+            p = rep.apply_parameters(theta, C["p"])
             dt = (tf - t0).unsqueeze(-1)
             ts = t0.unsqueeze(-1) + dt * C["taus"]
             w = dt * C["quad_w"]
@@ -342,6 +456,9 @@ class Transcription:
                 integrand = g.integrand(rep, ts, Y, X, L, p)
                 S = (w * integrand).sum(-1)
                 total = total + g.weight * g.value(rep, initial, final, S, p)
+            if opt.minimize_lagrange_multipliers and self.nlam:
+                total = total + opt.lagrange_multiplier_weight * \
+                    (w * (L * L).sum(-1)).sum(-1)
             if opt.minimize_implicit_multibody_accelerations and \
                     self.implicit_mb:
                 a2 = (D[..., :self.nq] ** 2).sum(-1)
@@ -354,13 +471,16 @@ class Transcription:
                     (w * d2).sum(-1)
             return total
 
-        return objective
+        return self._per_lane(objective)
 
     # ------------------------------------------------------------ diagnostics
     def constraint_group_info(self):
         """(name, size) per constraint block, in assembly order."""
         groups = []
         if self.hermite_simpson:
+            if self.n_gamma:
+                groups.append(("midpoint_manifold_phi",
+                               self.n_int * self.nlam))
             groups.append(("hermite_defect", self.n_int * self.ny))
             groups.append(("simpson_defect", self.n_int * self.ny))
             if self.nx and self.opt.interpolate_control_midpoints:
@@ -370,6 +490,13 @@ class Transcription:
         n_alg = (self.nq if self.implicit_mb else 0) + self.n_zeta
         if n_alg:
             groups.append(("dae_residual", self.G * n_alg))
+        if self.nlam:
+            mult = 3 if self.opt.enforce_constraint_derivatives else 1
+            groups.append(("kinematic_constraint",
+                           len(self.mesh_idx) * self.nlam * mult))
+        for pc in self.rep.path_constraints:
+            groups.append((f"path:{pc.name}",
+                           self.n_pc_points * len(pc.lower)))
         for g in self.ec_goals:
             groups.append((f"endpoint:{g.name}", g.num_outputs))
         return groups
@@ -378,21 +505,19 @@ class Transcription:
     def kkt_structure(self):
         """Time-grouped block structure of the NLP (see
         ``solver.nlp.KKTStructure``): the variables and constraint rows of
-        mesh interval i form block i; the times, endpoint-constraint rows
-        and their slacks form the border. The same index lists as the JAX
-        package's ``Transcription.kkt_structure``.
+        mesh interval i form block i; the times, parameters,
+        endpoint-constraint rows and their slacks form the border. The
+        same index lists as the JAX package's
+        ``Transcription.kkt_structure`` (transcription.py:617-706).
 
         None (dense path) when fewer than two intervals, or when a cost
         goal adds cross-block curvature (``Goal.hessian_block_local``).
-        Raises on row groups the port does not assemble (path and
-        kinematic constraints, prescribed motion), rather than building a
-        wrong structure."""
-        rep = self.rep
-        if self.prescribed or self.nlam or rep.path_constraints or \
-                self.n_gamma or self.n_pc_slack:
+        Raises for prescribed motion, which the port does not assemble,
+        rather than building a wrong structure."""
+        if self.prescribed:
             raise NotImplementedError(
-                "kkt_structure: prescribed motion, kinematic and path "
-                "constraints are not ported yet (ROADMAP.md, queue 1)")
+                "kkt_structure: prescribed motion is not ported yet "
+                "(ROADMAP.md, queue 1)")
         N = self.n_int
         if N < 2:
             return None
@@ -412,7 +537,15 @@ class Transcription:
             b = blocks_v[blk_of_grid(g)]
             b += var_ids("states", g, self.ny)
             b += var_ids("controls", g, self.nx)
+            b += var_ids("multipliers", g, self.nlam)
             b += var_ids("derivs", g, self.nderiv)
+        for i in range(N):  # velocity corrections
+            blocks_v[i] += var_ids("gamma", i, self.n_gamma)
+        npts = self.n_pc_points
+        for spos in range(len(self.pc_slack_specs)):  # path slacks
+            for j in range(npts):
+                blocks_v[min(j, N - 1)].append(
+                    o["pc_slack"][0] + spos * npts + j)
         border_v = [0, 1]
         border_v += list(range(*o["ec_slack"]))
         border_v += list(range(*o["params"]))
@@ -420,22 +553,41 @@ class Transcription:
         # constraint rows, in constraints_fn's assembly order
         blocks_c = [[] for _ in range(N)]
         off = 0
-        # interval-major defect rows: Hermite, Simpson, control midpoints
-        # (or the trapezoidal defect)
-        defects = [self.ny]
+
+        def rows(per, count, block_of):
+            nonlocal off
+            for j in range(count):
+                blocks_c[block_of(j)] += list(range(off, off + per))
+                off += per
+
+        def interval_major(per):
+            rows(per, N, lambda i: i)
+
+        def grid_major(per):
+            rows(per, self.G, blk_of_grid)
+
+        def mesh_major(per):
+            rows(per, len(self.mesh_idx), lambda j: min(j, N - 1))
+
         if self.hermite_simpson:
-            defects.append(self.ny)
+            if self.n_gamma:
+                interval_major(self.nlam)  # midpoint manifold phi
+            interval_major(self.ny)  # Hermite
+            interval_major(self.ny)  # Simpson
             if self.nx and self.opt.interpolate_control_midpoints:
-                defects.append(self.nx)
-        for size in defects:
-            for i in range(N):
-                blocks_c[i] += list(range(off, off + size))
-                off += size
+                interval_major(self.nx)
+        else:
+            interval_major(self.ny)  # trapezoidal defect
         n_alg = (self.nq if self.implicit_mb else 0) + self.n_zeta
-        if n_alg:  # grid-major DAE residual rows
-            for g in range(self.G):
-                blocks_c[blk_of_grid(g)] += list(range(off, off + n_alg))
-                off += n_alg
+        if n_alg:
+            grid_major(n_alg)
+        if self.nlam:
+            mult = 3 if self.opt.enforce_constraint_derivatives else 1
+            for _ in range(mult):  # phi, phidot, phiddot
+                mesh_major(self.nlam)
+        for pc in self.rep.path_constraints:
+            for _ in range(len(pc.lower)):
+                mesh_major(1)
         n_ec = sum(goal.num_outputs for goal in self.ec_goals)
         border_c = list(range(off, off + n_ec))
         return KKTStructure(var_blocks=blocks_v, con_blocks=blocks_c,

@@ -40,3 +40,22 @@ def test_kirk_min_effort_analytic():
     assert sol.success, sol.status
     np.testing.assert_allclose(sol.states[:, :2], kirk_expected(sol.time),
                                rtol=0, atol=5e-4)
+
+
+def test_swingup_with_path_constraint():
+    """The double-pendulum swing-up with its elbow path constraint
+    (``test_examples.py::test_double_pendulum_swingup``'s endpoint checks,
+    at mesh 10): hanging at t=0, inverted at t=1, elbow in [-2, 2] at the
+    mesh points, where the constraint holds (the Hermite-Simpson
+    midpoints may pass it: 2.02 in the JAX package's solution too)."""
+    study = tex.double_pendulum_swingup_study(10, with_path_constraint=True)
+    study.set_ipm_options(tol=1e-6, max_iter=300)
+    sol = study.solve("cpu")
+    assert sol.success, sol.status
+    q0 = sol.state("/jointset/j0/q0/value")
+    q1 = sol.state("/jointset/j1/q1/value")
+    assert abs(q0[0]) < 1e-6
+    assert abs(q0[-1] - np.pi) < 1e-6
+    assert abs(q1[-1]) < 1e-6
+    assert np.all(np.abs(q1[::2]) <= 2.0 + 1e-6)
+    assert np.abs(q1).max() > 1.9  # the constraint is active

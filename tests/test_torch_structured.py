@@ -233,8 +233,8 @@ def test_helpers_match_dense_autodiff(case):
 
 def test_kkt_structure_guards():
     """No structure (dense path) when a cost goal adds cross-block
-    curvature, as in the JAX package; a raise on row groups the port does
-    not assemble."""
+    curvature, as in the JAX package; a raise for prescribed motion, which
+    the port does not assemble."""
 
     class EndpointProduct(Goal):
         def value(self, rep, initial, final, integral, p):
@@ -244,6 +244,6 @@ def test_kkt_structure_guards():
     study.problem.add_goal(EndpointProduct(name="coupled"))
     assert study.transcription().kkt_structure() is None
     tr = tex.sliding_mass_study(6, "trapezoidal").transcription()
-    tr.rep.path_constraints = [object()]
-    with pytest.raises(NotImplementedError):
+    tr.prescribed = True
+    with pytest.raises(NotImplementedError, match="prescribed"):
         tr.kkt_structure()
