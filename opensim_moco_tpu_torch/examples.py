@@ -1,8 +1,10 @@
 """Example problems on the port's main path.
 
 Counterparts of ``opensim_moco_tpu.examples`` builders, with the same
-signatures and the same problems; each returns a ready-to-solve
-:class:`~opensim_moco_tpu_torch.ocp.study.Study`.
+signatures and the same problems, plus two problems of the JAX package's
+tests (the coupler-constrained double pendulum of ``test_constraints.py``
+and the oscillator mass of ``test_parameters.py``); each returns a
+ready-to-solve :class:`~opensim_moco_tpu_torch.ocp.study.Study`.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ import numpy as np
 from .models import MechModelBuilder
 from .models import muscle as dgf
 from .models.model import Model
-from .ocp import (ControlGoal, FinalTimeGoal, InitialActivationGoal,
+import torch
+
+from .ocp import (ControlGoal, CustomGoal, FinalTimeGoal,
+                  InitialActivationGoal,
                   InitialForceEquilibriumGoal,
                   InitialVelocityEquilibriumDGFGoal, Problem, Study)
 
@@ -161,4 +166,59 @@ def double_pendulum_swingup_study(num_mesh_intervals=25,
     study = Study(prob)
     study.set_solver_options(transcription_scheme=scheme,
                              num_mesh_intervals=num_mesh_intervals)
+    return study
+
+
+def oscillator_mass_study(num_mesh_intervals=40, goal_mode="cost"):
+    """Optimize a body's mass (the JAX package's
+    ``test_parameters.py::test_optimize_oscillator_mass``, after reference
+    testMocoParameters.cpp): a unit spring, q(0) = 1, u(0) = 0, no
+    forcing, so q(t) = cos(t / sqrt(m)); the final state at t = pi fixes
+    m = 1.
+
+    ``goal_mode="cost"``: the JAX test's problem, a custom cost
+    (q(pi) + 1)^2 + u(pi)^2 on m in [0.1, 10]; the cost's ``value_fn``
+    sends it to the dense KKT path. ``"endpoint_constraint"``: the
+    half-period condition u(pi) = 0 as an endpoint-constraint row, so the
+    parameter and that row form the KKT border (k = 2). The bounds narrow
+    to [0.5, 2], the range where m = 1 is u(pi)'s only root and |u(pi)|
+    has no other minimum: from the midpoint of [0.1, 10] the constraint
+    alone leads to m = 10, where |u(pi)| is smallest, in both packages."""
+    b = MechModelBuilder(gravity=(0.0, 0.0, 0.0))
+    b.add_body("osc", mass=3.0, joint_name="j", kind="prismatic",
+               axis=(1, 0, 0), coord_name="q")
+    model = Model(b.finalize())
+    model.add_spring_generalized_force("spring", "q", stiffness=1.0)
+    model.finalize()
+
+    prob = Problem(model)
+    prob.set_time_bounds(0, np.pi)
+    prob.set_state_info("/jointset/j/q/value", (-5, 5), 1.0)
+    prob.set_state_info("/jointset/j/q/speed", (-5, 5), 0.0)
+
+    def apply_mass(p, theta):  # out of place: runs under torch.func
+        mech = dict(p["mech"])
+        mech["mass"] = torch.cat([theta.reshape(1), mech["mass"][1:]])
+        return {**p, "mech": mech}
+
+    if goal_mode == "cost":
+        prob.add_parameter("osc_mass", (0.1, 10.0), apply_mass,
+                           initial_value=3.0)
+        prob.add_goal(CustomGoal(
+            name="endpoint_match",
+            value_fn=lambda rep, initial, final, integral, p:
+            (final[1][..., 0] + 1.0) ** 2 + final[1][..., 1] ** 2))
+    elif goal_mode == "endpoint_constraint":
+        prob.add_parameter("osc_mass", (0.5, 2.0), apply_mass,
+                           initial_value=3.0)
+        prob.add_goal(CustomGoal(
+            name="half_period", mode="endpoint_constraint",
+            value_fn=lambda rep, initial, final, integral, p:
+            final[1][..., 1]))
+    else:
+        raise ValueError(goal_mode)
+
+    study = Study(prob)
+    study.set_solver_options(num_mesh_intervals=num_mesh_intervals)
+    study.set_ipm_options(tol=1e-8, max_iter=500)
     return study

@@ -1,12 +1,12 @@
-from .goals import (ControlGoal, FinalTimeGoal, Goal, InitialActivationGoal,
-                    InitialForceEquilibriumGoal,
+from .goals import (ControlGoal, CustomGoal, FinalTimeGoal, Goal,
+                    InitialActivationGoal, InitialForceEquilibriumGoal,
                     InitialVelocityEquilibriumDGFGoal)
 from .problem import (ParameterSpec, PathConstraintSpec, Problem,
                       ProblemRep, VariableInfo)
 from .study import Solution, Study
 
 __all__ = [
-    "Goal", "ControlGoal", "FinalTimeGoal", "InitialActivationGoal",
+    "Goal", "ControlGoal", "CustomGoal", "FinalTimeGoal", "InitialActivationGoal",
     "InitialForceEquilibriumGoal", "InitialVelocityEquilibriumDGFGoal",
     "ParameterSpec", "PathConstraintSpec", "Problem", "ProblemRep",
     "VariableInfo", "Solution", "Study",

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+from typing import Callable
 
 import numpy as np
 import torch
@@ -202,3 +203,42 @@ class InitialForceEquilibriumGoal(_InitialMuscleEquilibrium):
         return dgf.implicit_tendon_residual(
             mp, act, ft, 0.0, lMT, vMT,
             m.muscles[mi].ignore_passive_fiber_force or None)
+
+
+@dataclasses.dataclass
+class CustomGoal(Goal):
+    """Arbitrary integrand/endpoint closures (JAX ``ocp/goals.py:301``).
+    ``integrand_fn(rep, t, y, x, lam, p)`` and
+    ``value_fn(rep, initial, final, integral, p)`` take the port's batched
+    tensors. A ``value_fn`` in cost mode may couple any points, so it sends
+    the problem to the dense KKT path, as in the JAX package.
+
+    In ``"endpoint_constraint"`` mode ``value_fn`` gives the constraint
+    values, (...) or (..., num_outputs), and is called with
+    ``integral=None`` (endpoint rows have no quadrature); the JAX package's
+    goal has no such mode."""
+    name: str = "custom"
+    integrand_fn: Callable | None = None
+    value_fn: Callable | None = None
+
+    def hessian_block_local(self):
+        return self.value_fn is None
+
+    def integrand(self, rep, t, y, x, lam, p):
+        if self.integrand_fn is None:
+            return torch.zeros_like(t)
+        return self.integrand_fn(rep, t, y, x, lam, p)
+
+    def value(self, rep, initial, final, integral, p):
+        if self.value_fn is None:
+            return super().value(rep, initial, final, integral, p)
+        return self.value_fn(rep, initial, final, integral, p)
+
+    def values(self, rep, initial, final, p):
+        if self.value_fn is None:
+            raise ValueError(f"CustomGoal {self.name!r}: endpoint-constraint "
+                             "mode needs a value_fn")
+        vals = self.value_fn(rep, initial, final, None, p)
+        if vals.dim() == initial[0].dim():
+            vals = vals.unsqueeze(-1)
+        return vals

@@ -10,6 +10,7 @@ initial guess, runs one lane and expands the flat solution into a
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 
 import numpy as np
@@ -36,6 +37,12 @@ class Solution:
     kkt_error: float
     solver_duration: float
     raw_iterate: np.ndarray
+    multiplier_names: list = dataclasses.field(default_factory=list)
+    multipliers: np.ndarray | None = None  # (G, nlam)
+    derivative_names: list = dataclasses.field(default_factory=list)
+    derivatives: np.ndarray | None = None  # (G, nderiv)
+    parameter_names: list = dataclasses.field(default_factory=list)
+    parameters: np.ndarray | None = None  # (np,)
 
     @property
     def initial_time(self):
@@ -84,18 +91,62 @@ class Study:
                                (res.z, res.f, res.kkt_error, res.iterations,
                                 res.converged))
         duration = time.perf_counter() - start
-        t0, tf = z[0], z[1]
-        o = tr.offsets
+        rep = tr.rep
+        t0, tf, Y, X, L, D, _, _, _, theta = tr.unpack(z)
+        deriv_names = []
+        if tr.implicit_mb:
+            deriv_names += [c + "/accel" for c in rep.model.coordinate_paths()]
+        deriv_names += [
+            f"/forceset/{m}/implicitderiv_normalized_tendon_force"
+            for m in rep.model._implicit_aux]
         converged = bool(conv)
+        self._check_constraint_jacobian_rank(tr, Y)
         return Solution(
             time=t0 + (tf - t0) * np.asarray(tr.taus),
-            state_names=list(tr.rep.state_names),
-            states=z[o["states"][0]:o["states"][1]].reshape(tr.G, tr.ny),
-            control_names=list(tr.rep.control_names),
-            controls=z[o["controls"][0]:o["controls"][1]].reshape(tr.G,
-                                                                  tr.nx),
+            state_names=list(rep.state_names), states=Y,
+            control_names=list(rep.control_names), controls=X,
+            multiplier_names=rep.model.multiplier_names(), multipliers=L,
+            derivative_names=deriv_names, derivatives=D,
+            parameter_names=[p.name for p in rep.parameters],
+            parameters=theta,
             success=converged,
             status=("converged" if converged
                     else f"max iterations or stall (kkt={float(kkt):.2e})"),
             objective=float(f), num_iterations=int(it),
             kkt_error=float(kkt), solver_duration=duration, raw_iterate=z)
+
+    def _check_constraint_jacobian_rank(self, tr, Y):
+        """Post-solve rank check of the kinematic-constraint Jacobian (JAX
+        ``ocp/study.py:288``): enforced without its derivatives and without
+        multiplier minimization, a rank-deficient G(q) leaves the
+        multipliers indeterminate, so log a warning with the same
+        guidance. Evaluated on the CPU at up to 9 grid points."""
+        rep, opt = tr.rep, tr.opt
+        model = rep.model
+        if (not model.nphi or opt.enforce_constraint_derivatives or
+                opt.minimize_lagrange_multipliers):
+            return
+        p = rep.apply_parameters(torch.zeros(rep.np, dtype=torch.float64),
+                                 model.default_params("cpu"))
+        for g in range(0, tr.G, max(1, tr.G // 8)):
+            G = model.constraint_jacobian(
+                p, torch.as_tensor(Y[g, :model.nq])).numpy()
+            rank = int(np.linalg.matrix_rank(G))
+            if rank < G.shape[0]:
+                dashes = "-" * 52
+                log = logging.getLogger("opensim_moco_tpu_torch")
+                for line in (
+                        dashes,
+                        "Rank-deficient constraint Jacobian detected.",
+                        dashes,
+                        f"The model constraint Jacobian has {G.shape[0]} "
+                        f"row(s) but is only rank {rank}.",
+                        "Try removing redundant constraints from the model "
+                        "or enable",
+                        "minimization of Lagrange multipliers by utilizing "
+                        "the solver",
+                        "properties 'minimize_lagrange_multipliers' and",
+                        "'lagrange_multiplier_weight'.",
+                        dashes):
+                    log.warning(line)
+                return

@@ -7,9 +7,15 @@ Kirk's minimum-effort problem (a negative damper: the generalized
 spring): states within 5e-4 of Kirk's closed form. Hermite-Simpson at 10
 intervals carries a discretization error of 1.5e-4 there (at 50
 intervals, the JAX test's mesh, it is 3e-7 and the JAX test holds 1e-5).
+
+The oscillator mass (an optimizable parameter): m within 1e-3 of 1, as
+the JAX test holds it, in both goal modes (m = 0.99997 at mesh 10), and
+q(t) within 1e-4 of cos(t) (2.5e-5 at mesh 10; the JAX test holds 2e-3
+at mesh 40).
 """
 
 import numpy as np
+import pytest
 import torch
 
 from opensim_moco_tpu_torch import examples as tex
@@ -59,3 +65,19 @@ def test_swingup_with_path_constraint():
     assert abs(q1[-1]) < 1e-6
     assert np.all(np.abs(q1[::2]) <= 2.0 + 1e-6)
     assert np.abs(q1).max() > 1.9  # the constraint is active
+
+
+@pytest.mark.parametrize("goal_mode,kkt", [("cost", "auto"),
+                                           ("endpoint_constraint",
+                                            "structured")])
+def test_oscillator_mass(goal_mode, kkt):
+    study = tex.oscillator_mass_study(10, goal_mode)
+    study.set_ipm_options(kkt=kkt)
+    tr = study.transcription()
+    assert (tr.kkt_structure() is None) == (goal_mode == "cost")
+    sol = study.solve("cpu")
+    assert sol.success, sol.status
+    assert sol.parameter_names == ["osc_mass"]
+    assert abs(float(sol.parameters[0]) - 1.0) < 1e-3
+    np.testing.assert_allclose(sol.state("/jointset/j/q/value"),
+                               np.cos(sol.time), rtol=0, atol=1e-4)
