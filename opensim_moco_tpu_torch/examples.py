@@ -222,3 +222,42 @@ def oscillator_mass_study(num_mesh_intervals=40, goal_mode="cost"):
     study.set_solver_options(num_mesh_intervals=num_mesh_intervals)
     study.set_ipm_options(tol=1e-8, max_iter=500)
     return study
+
+
+def coupler_pendulum_study(num_mesh_intervals=15,
+                           scheme="hermite-simpson",
+                           enforce_constraint_derivatives=True):
+    """Double pendulum with q1 = q0 enforced by a kinematic constraint
+    (the JAX package's
+    ``test_constraints.py::test_coupler_constrained_double_pendulum``,
+    after reference testConstraints.cpp): swing from rest at 0 to rest at
+    q0 = 0.6 in 1 s with minimum effort."""
+    b = MechModelBuilder(gravity=(0, -9.81, 0))
+    b.add_body("link1", mass=1.0, com=(0, -0.5, 0),
+               inertia=np.diag([0, 0, 1.0 / 12]), joint_name="j0",
+               kind="revolute", axis=(0, 0, 1), coord_name="q0")
+    b.add_body("link2", mass=1.0, com=(0, -0.5, 0), parent="link1",
+               joint_name="j1", kind="revolute", axis=(0, 0, 1),
+               tree_r=(0, -1.0, 0), coord_name="q1")
+    model = Model(b.finalize())
+    model.add_coordinate_actuator("tau0", "q0", optimal_force=1.0,
+                                  min_control=-100, max_control=100)
+    model.add_coordinate_actuator("tau1", "q1", optimal_force=1.0,
+                                  min_control=-100, max_control=100)
+    model.add_kinematic_constraint(
+        "coupler", lambda mp, q: q[..., 1:2] - q[..., 0:1])
+    model.finalize()
+
+    prob = Problem(model)
+    prob.set_time_bounds(0, 1)
+    prob.set_state_info("/jointset/j0/q0/value", (-5, 5), 0, 0.6)
+    prob.set_state_info("/jointset/j1/q1/value", (-5, 5), 0)
+    prob.set_state_info("/jointset/j0/q0/speed", (-20, 20), 0, 0)
+    prob.set_state_info("/jointset/j1/q1/speed", (-20, 20), 0)
+    prob.add_goal(ControlGoal(name="effort", weight=0.5))
+    study = Study(prob)
+    study.set_solver_options(
+        transcription_scheme=scheme, num_mesh_intervals=num_mesh_intervals,
+        enforce_constraint_derivatives=enforce_constraint_derivatives)
+    study.set_ipm_options(tol=1e-6, max_iter=500)
+    return study

@@ -27,7 +27,7 @@ import torch
 
 from ..convert import params_from_numpy
 from . import muscle as dgf
-from .mech import MechModel, spd_solve
+from .mech import GROUND, MechModel, _const_vec, spd_solve
 from .spatial import mv
 
 
@@ -95,6 +95,8 @@ class Model:
         self.mech = mech
         self.actuators: list[CoordinateActuatorSpec] = []
         self.springs: list[SpringGeneralizedForceSpec] = []
+        self.kinematic_constraints: list = []  # (name, fn)
+        self.couplers: list = []  # (dependent, independent, fn)
         self.muscles: list[MuscleSpec] = []
         self._muscle_params: list[dict] = []
         self.prescribed = False
@@ -155,8 +157,121 @@ class Model:
     def add_custom_control_force(self, *args, **kwargs):
         _unported("custom control forces")
 
-    def add_kinematic_constraint(self, *args, **kwargs):
-        _unported("kinematic constraints")
+    def add_kinematic_constraint(self, name, fn):
+        """``fn(mech_params, q) -> (..., k)`` position-level residuals for
+        q (..., nq) with any leading dims (JAX ``models/model.py:359``).
+        It runs under ``torch.func`` transforms: no in-place writes."""
+        self.kinematic_constraints.append((name, fn))
+
+    # --- the Simbody constraint types (JAX models/model.py:363-481); each
+    # is a phi(q) builder, which the transcription treats uniformly
+    def _body_point_world(self, frames, body, loc, like):
+        """JAX ``models/model.py:367``."""
+        return self.mech._station_world(frames, body, loc, like)
+
+    def add_point_constraint(self, name, body1, loc1, body2, loc2):
+        """The two body-fixed stations coincide (Constraint::Ball).
+        3 equations."""
+
+        def phi(mp, q):
+            fr = self.mech.frames(mp, q)
+            return (self._body_point_world(fr, body1, loc1, q) -
+                    self._body_point_world(fr, body2, loc2, q))
+
+        self.add_kinematic_constraint(name, phi)
+
+    def add_weld_constraint(self, name, body1, body2, loc1=(0, 0, 0),
+                            loc2=(0, 0, 0)):
+        """Coincident stations and zero relative orientation
+        (Constraint::Weld). 6 equations: 3 of the point, 3 of the skew
+        part of the relative rotation."""
+
+        def frame_R(fr, body, q):
+            if body == GROUND:
+                return torch.diag_embed(_const_vec((1.0, 1.0, 1.0), q))
+            return fr[body][0]
+
+        def phi(mp, q):
+            fr = self.mech.frames(mp, q)
+            p1 = self._body_point_world(fr, body1, loc1, q)
+            p2 = self._body_point_world(fr, body2, loc2, q)
+            R = frame_R(fr, body1, q) @ frame_R(fr, body2, q).transpose(
+                -1, -2)
+            rot = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                               R[..., 0, 2] - R[..., 2, 0],
+                               R[..., 1, 0] - R[..., 0, 1]], -1) * 0.5
+            p1, p2, rot = torch.broadcast_tensors(p1, p2, rot)
+            return torch.cat([p1 - p2, rot], -1)
+
+        self.add_kinematic_constraint(name, phi)
+
+    def add_point_on_line_constraint(self, name, line_body, line_origin,
+                                     line_direction, follower_body,
+                                     follower_point):
+        """The follower station lies on a line fixed in ``line_body``
+        (Constraint::PointOnLine). 2 equations: the offset's components
+        orthogonal to the line."""
+        d = np.asarray(line_direction, dtype=np.float64)
+        d = d / np.linalg.norm(d)
+        # orthonormal complement of the line direction (static)
+        a = np.array([1.0, 0.0, 0.0])
+        if abs(d @ a) > 0.9:
+            a = np.array([0.0, 1.0, 0.0])
+        e1 = np.cross(d, a)
+        e1 /= np.linalg.norm(e1)
+        e2 = np.cross(d, e1)
+
+        def phi(mp, q):
+            fr = self.mech.frames(mp, q)
+            pf = self._body_point_world(fr, follower_body, follower_point, q)
+            off = pf - self._body_point_world(fr, line_body, line_origin, q)
+            e1w, e2w = _const_vec(e1, q), _const_vec(e2, q)
+            if line_body != GROUND:
+                At = fr[line_body][0].transpose(-1, -2)
+                e1w, e2w = mv(At, e1w), mv(At, e2w)
+            return torch.stack([(off * e1w).sum(-1), (off * e2w).sum(-1)],
+                               -1)
+
+        self.add_kinematic_constraint(name, phi)
+
+    def add_constant_distance_constraint(self, name, body1, loc1, body2,
+                                         loc2, distance):
+        """Fixed distance between two stations
+        (Constraint::ConstantDistance). 1 equation, on the squared
+        distance for smoothness."""
+
+        def phi(mp, q):
+            fr = self.mech.frames(mp, q)
+            diff = (self._body_point_world(fr, body1, loc1, q) -
+                    self._body_point_world(fr, body2, loc2, q))
+            return (0.5 * ((diff * diff).sum(-1) - distance * distance) /
+                    distance).unsqueeze(-1)
+
+        self.add_kinematic_constraint(name, phi)
+
+    def add_locked_coordinate_constraint(self, name, coord, value):
+        """Lock a coordinate at a value. 1 equation."""
+        ci = self.coord_index(coord) if isinstance(coord, str) else coord
+
+        def phi(mp, q):
+            return q[..., ci:ci + 1] - value
+
+        self.add_kinematic_constraint(name, phi)
+
+    def add_coordinate_coupler_constraint(self, name, dependent,
+                                          independent, fn):
+        """q_dep = fn(q_ind) (CoordinateCouplerConstraint); ``fn`` maps a
+        tensor elementwise."""
+        di = self.coord_index(dependent) if isinstance(dependent, str) \
+            else dependent
+        ii = self.coord_index(independent) if isinstance(independent, str) \
+            else independent
+        self.couplers.append((di, ii, fn))
+
+        def phi(mp, q):
+            return q[..., di:di + 1] - fn(q[..., ii:ii + 1])
+
+        self.add_kinematic_constraint(name, phi)
 
     def set_position_motion(self, *args, **kwargs):
         _unported("prescribed motion")
@@ -177,7 +292,13 @@ class Model:
             m.name for m in self.muscles
             if (not m.ignore_tendon_compliance) and m.tendon_dynamics_implicit]
         self.n_implicit_aux = len(self._implicit_aux)
-        self.nphi = 0
+        # equations per kinematic constraint, for the multiplier count and
+        # names (JAX models/model.py:561-562)
+        mp0 = self.mech.default_params("cpu")
+        q0 = torch.zeros(self.nq, dtype=torch.float64)
+        self._constraint_eqs = [(name, int(fn(mp0, q0).numel()))
+                                for name, fn in self.kinematic_constraints]
+        self.nphi = sum(k for _, k in self._constraint_eqs)
         # static per-muscle index tables (the JAX package's ``_mv``)
         nm = len(self.muscles)
         aux_pos = {key: k for k, key in enumerate(self._aux_index)}
@@ -211,7 +332,12 @@ class Model:
 
     # names --------------------------------------------------------------
     def multiplier_names(self):
-        return []
+        """One Lagrange multiplier per constraint equation, in the row
+        order of :meth:`phi`, named "lambda_cid{cid}_p{i}" (JAX
+        ``models/model.py:567``)."""
+        return [f"lambda_cid{cid}_p{i}"
+                for cid, (_, k) in enumerate(self._constraint_eqs)
+                for i in range(k)]
 
     def coordinate_paths(self):
         """Moco-style absolute paths per coordinate, in coordinate order."""
@@ -387,17 +513,48 @@ class Model:
         # tension shortens the path
         return tau + pullback(-F_m)[0]
 
+    # ---------------------------------------------------- kinematic cons
+    def phi(self, p, q):
+        """Stacked position-level constraint residuals (..., nphi) (JAX
+        ``models/model.py:1098``)."""
+        if not self.kinematic_constraints:
+            return q.new_zeros(q.shape[:-1] + (0,))
+        vals = [fn(p["mech"], q) for _, fn in self.kinematic_constraints]
+        lead = q.shape[:-1]
+        return torch.cat([v.expand(lead + v.shape[-1:]) for v in vals], -1)
+
+    def constraint_jacobian(self, p, q):
+        """G = d phi / dq, (..., nphi, nq): one forward tangent per
+        coordinate, batched with ``vmap`` (JAX ``jacfwd``,
+        ``models/model.py:1107``)."""
+        eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+
+        def col(e):
+            return torch.func.jvp(lambda qq: self.phi(p, qq), (q,),
+                                  (e.expand_as(q),))[1]
+
+        return torch.func.vmap(col, out_dims=-1)(eye)
+
+    def constraint_jacobian_T(self, p, q, lam):
+        """G(q)^T lam, (..., nq), by one reverse pass through phi."""
+        return torch.func.vjp(lambda qq: self.phi(p, qq), q)[1](lam)[0]
+
     # -------------------------------------------------------------- dynamics
     def multibody_explicit(self, p, t, q, u, z, x, lam=None):
-        """udot = M^{-1} (f_app - bias)."""
+        """udot = M^{-1} (f_app - bias - G^T lam) (JAX
+        ``models/model.py:1110``)."""
         tau = self.applied_generalized_forces(p, t, q, u, z, x)
+        if self.nphi:
+            tau = tau - self.constraint_jacobian_T(p, q, lam)
         M = self.mech.mass_matrix(p["mech"], q)
         b = self.mech.bias_forces(p["mech"], q, u)
         return spd_solve(M, tau - b)
 
     def multibody_implicit_residual(self, p, t, q, u, z, x, lam, udot):
-        """M udot - (f_app - bias) (N m)."""
+        """M udot + G^T lam - (f_app - bias) (N m)."""
         tau = self.applied_generalized_forces(p, t, q, u, z, x)
+        if self.nphi:
+            tau = tau - self.constraint_jacobian_T(p, q, lam)
         M = self.mech.mass_matrix(p["mech"], q)
         b = self.mech.bias_forces(p["mech"], q, u)
         return mv(M, udot) - (tau - b)

@@ -81,3 +81,22 @@ def test_oscillator_mass(goal_mode, kkt):
     assert abs(float(sol.parameters[0]) - 1.0) < 1e-3
     np.testing.assert_allclose(sol.state("/jointset/j/q/value"),
                                np.cos(sol.time), rtol=0, atol=1e-4)
+
+
+def test_coupler_pendulum():
+    """``test_constraints.py::test_coupler_constrained_double_pendulum``'s
+    checks at mesh 10, under ``kkt="structured"`` (the multipliers and
+    velocity corrections in the blocks)."""
+    study = tex.coupler_pendulum_study(10)
+    study.set_ipm_options(kkt="structured")
+    sol = study.solve("cpu")
+    assert sol.success, sol.status
+    q0 = sol.state("/jointset/j0/q0/value")
+    q1 = sol.state("/jointset/j1/q1/value")
+    np.testing.assert_allclose(q1, q0, rtol=0, atol=1e-6)
+    assert abs(q0[-1] - 0.6) < 1e-6
+    np.testing.assert_allclose(sol.state("/jointset/j1/q1/speed"),
+                               sol.state("/jointset/j0/q0/speed"), rtol=0,
+                               atol=1e-5)
+    assert sol.multipliers.shape == (len(sol.time), 1)
+    assert np.all(np.isfinite(sol.multipliers))

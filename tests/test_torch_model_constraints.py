@@ -1,12 +1,17 @@
-"""Parity of the port's generalized springs against the JAX package.
+"""Parity of the port's generalized springs and kinematic constraints
+against the JAX package.
 
 A double pendulum with a spring/damper on each coordinate (stiffness,
-rest length and viscosity all non-zero) and a torque actuator on each,
-evaluated at points drawn with numpy from a fixed seed, float64 on the
-CPU: ``applied_generalized_forces`` and both multibody forms. The port
-evaluates the batch at once; the JAX side point by point through
-``vmap``. Tolerance: relative 1e-12 of the largest magnitude (same
-formulas; only the order of a few sums differs).
+rest length and viscosity all non-zero) and a torque actuator on each;
+then the same pendulum with each kind of kinematic constraint (the
+generic one and the six named ones). Evaluated at points drawn with numpy
+from a fixed seed, float64 on the CPU: ``applied_generalized_forces``,
+``phi``, ``constraint_jacobian`` and both multibody forms with random
+multipliers. The port evaluates the batch at once; the JAX side point by
+point through ``vmap``. Tolerance: relative 1e-12 of the largest
+magnitude (same formulas; only the order of a few sums differs; the port
+forms G^T lam by one reverse pass, the JAX package by a product with the
+forward-mode Jacobian).
 """
 
 import jax
@@ -111,3 +116,58 @@ def test_spring_parity():
                np.array([0.4, -1.0]))
     np.testing.assert_allclose(diff, -k * (inp["q"] - r) - c * inp["u"],
                                rtol=0, atol=1e-14)
+
+
+def _coupling(v):
+    return 0.5 * v * v - 0.2 * v
+
+
+CONSTRAINTS = {
+    "generic": lambda m, jax_side: m.add_kinematic_constraint(
+        "gen", (lambda mp, q: jnp.stack([q[1] - q[0] ** 2, q[0] * q[1]]))
+        if jax_side else
+        (lambda mp, q: torch.stack([q[..., 1] - q[..., 0] ** 2,
+                                    q[..., 0] * q[..., 1]], -1))),
+    "point": lambda m, _: (
+        m.add_point_constraint("pt", 1, (1.0, 0, 0), -1, (2.0, 0.0, 0.0)),
+        m.add_point_constraint("pt2", 0, (0.2, -0.1, 0), 1, (0.0, 0.3, 0))),
+    "weld": lambda m, _: (
+        m.add_weld_constraint("weld", 1, -1, (1.0, 0, 0), (2.0, 0.0, 0.0)),
+        m.add_weld_constraint("weld2", 0, 1, (0.1, 0, 0), (0.0, 0.2, 0))),
+    "point_on_line": lambda m, _: (
+        m.add_point_on_line_constraint("pol", -1, (0.0, 0.0, 0.0),
+                                       (1.0, 0.0, 0.0), 1, (1.0, 0.0, 0.0)),
+        m.add_point_on_line_constraint("pol2", 0, (0.0, -0.5, 0.0),
+                                       (0.3, 1.0, 0.0), 1, (0.2, 0.0, 0.1))),
+    "constant_distance": lambda m, _: m.add_constant_distance_constraint(
+        "dist", -1, (0.0, 0.0, 0.0), 1, (1.0, 0.0, 0.0), 2.0),
+    "locked_coordinate": lambda m, _: m.add_locked_coordinate_constraint(
+        "lock", "q1", 0.3),
+    "coordinate_coupler": lambda m, _: m.add_coordinate_coupler_constraint(
+        "cc", "q1", "q0", _coupling),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(CONSTRAINTS))
+def test_kinematic_constraint_parity(kind):
+    jm = double_pendulum(JBuilder, JModel, springs=False)
+    tm = double_pendulum(TBuilder, TModel, springs=False)
+    CONSTRAINTS[kind](jm, True)
+    CONSTRAINTS[kind](tm, False)
+    jm.finalize()
+    tm.finalize()
+    assert tm.nphi == jm.nphi > 0
+    assert tm.multiplier_names() == jm.multiplier_names()
+    pj = jm.default_params()
+    pt = params_from_numpy(jax.device_get(pj), "cpu")
+    inp = inputs(jm, 2)
+    q = torch.as_tensor(inp["q"])
+    assert_close(tm.phi(pt, q), jax.vmap(lambda a: jm.phi(pj, a))(
+        jnp.asarray(inp["q"])))
+    assert_close(tm.constraint_jacobian(pt, q), jax.vmap(
+        lambda a: jm.constraint_jacobian(pj, a))(jnp.asarray(inp["q"])))
+    for port, ref in evaluate(jm, tm, inp):
+        assert_close(port, ref)
+    # one point without leading dims evaluates like the batch
+    assert_close(tm.constraint_jacobian(pt, q[0]),
+                 tm.constraint_jacobian(pt, q)[0].numpy(), rtol=1e-15)
