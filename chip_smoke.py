@@ -44,15 +44,44 @@ Phases, one report line each:
    (``_factor_barriers``, ``_solve_barriers``);
 9. card against CPU, iterate level, under ``kkt="structured"``.
 
+The constrained problems, each on its own path through K1:
+
+10. the double-pendulum swing-up with its elbow path constraint
+    (``double_pendulum_swingup_study(25, with_path_constraint=True)``,
+    path slacks in K1's blocks), B=32, the bench's IPM options,
+    ``kkt="structured"``, with n, m and K1's shape; then K1 against its
+    plain version on this lane's first Newton blocks, factor and a
+    1-column solve, with times;
+11. the same lane under ``kkt="dense"`` with
+    ``dense_factorization="chol-schur"``, B=8; lanes that converge in
+    both phases 10 and 11 have objectives within relative 1e-2 (the
+    Cholesky of H + Sigma + delta I needs the whole Hessian block
+    positive definite: on this non-convex problem the JAX package's
+    chol-schur converges no lane either);
+12. Kirk's minimum-effort problem (the generalized spring), mesh 50,
+    tol 1e-7, B=8, ``kkt="structured"``: converged lanes within 1e-5 of
+    the analytic states;
+13. the coupler-constrained double pendulum (multipliers and velocity
+    corrections in K1's blocks; mesh 15: |q1 - q0| <= 1e-6) and the
+    oscillator mass with its half-period endpoint constraint (the
+    parameter and the row in K1's border, k = 2; mesh 40:
+    |m - 1| <= 1e-3), each B=8, ``kkt="structured"``, then K1 against its
+    plain version on each lane's first Newton blocks;
+14. card against CPU, iterate level, ``kkt="structured"``, for the lanes
+    of phases 10 and 13 (the coupler): z, nu, wL and wU to 1e-6, mu and
+    the counters exactly.
+
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
 bound, at shape (a), and under a key that names shape (b) the same times
 at shape (b), which the main path does not launch; the solve also under
-a key for its 1-column times at shape (a). The last line of
-standard output is the result object. Run from the root of the
-repository::
+a key for its 1-column times at shape (a); and under a key per shape the
+same numbers for the Newton blocks of phases 10 and 13, with the
+launches of that phase's solve. The line before it gives each phase's
+wall seconds. The last line of standard output is the result object.
+Run from the root of the repository::
 
-    python3 chip_smoke.py [--out results.json] [--phases 8]
+    python3 chip_smoke.py [--out results.json] [--phases 8,10]
 
 ``--phases 8`` builds K1 and runs only its checks (about a minute): the
 loop to iterate on the kernel with.
@@ -71,6 +100,8 @@ FP64_FLOPS = 67e12  # H100 SXM, FP64 tensor core, NVIDIA data sheet
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ITERATE_RTOL = 1e-6
 KERNEL_RTOL = 1e-10
+COUNTERS = ("mu", "it", "converged", "filter_count", "acceptable_count",
+            "rescue_count", "stall_count", "mu_wait")
 
 
 def _fail(msg):
@@ -137,8 +168,9 @@ def _lane_rel_err(a, b):
     return float((np.abs(a - b).max(-1) / scale).max())
 
 
-def _iterate_parity(torch, tr, opts, z0, Z0):
-    """init_fn + 3 body_fn steps on the card and on the CPU."""
+def _iterate_parity(torch, tr, opts, z0, Z0, exact=("mu", "it")):
+    """init_fn + 3 body_fn steps on the card and on the CPU; the fields in
+    ``exact`` must be equal."""
     from opensim_moco_tpu_torch.config import full_precision
     from opensim_moco_tpu_torch.solver.ipm import make_kernel
 
@@ -156,7 +188,7 @@ def _iterate_parity(torch, tr, opts, z0, Z0):
             for k in ("z", "nu", "wL", "wU")}
     same = {k: bool(torch.equal(getattr(carries["cuda"], k).cpu(),
                                 getattr(carries["cpu"], k)))
-            for k in ("mu", "it")}
+            for k in exact}
     return {"max_lane_rel_err": errs, "exact": same}
 
 
@@ -444,11 +476,77 @@ def _sweep(torch):
             "max_lane_rel_err": worst, "disagree": bad}
 
 
+def kirk_expected(time):
+    """Kirk 1998 eq. 5.1-69/70, the analytic states of the minimum-effort
+    problem (a copy of the JAX package's test helper)."""
+    e = np.exp
+    A = np.array([
+        [-2 - 0.5 * e(-2) + 0.5 * e(2), 1 - 0.5 * e(-2) - 0.5 * e(2)],
+        [-1 + 0.5 * e(-2) + 0.5 * e(2), 0.5 * e(-2) - 0.5 * e(2)],
+    ])
+    c2, c3 = np.linalg.solve(A, np.array([5.0, 2.0]))
+    x0 = c2 * (-time - 0.5 * e(-time) + 0.5 * e(time)) + \
+        c3 * (1 - 0.5 * e(-time) - 0.5 * e(time))
+    x1 = c2 * (-1 + 0.5 * e(-time) + 0.5 * e(time)) + \
+        c3 * (0.5 * e(-time) - 0.5 * e(time))
+    return np.stack([x0, x1], axis=1)
+
+
+def _kkt_shape(tr):
+    """n, m and K1's block shape (N, nb, k) of a transcription's NLP once
+    the solver has eliminated its fixed variables."""
+    from opensim_moco_tpu_torch.solver.kkt import CompiledStructure
+
+    nlp = tr.make_nlp("cpu")
+    st = nlp.structure
+    cs = CompiledStructure(st.var_blocks, st.con_blocks, st.border_vars,
+                           st.border_cons, nlp.n, nlp.m)
+    free = np.nonzero(~(np.isfinite(nlp.lb) & (nlp.lb == nlp.ub)))[0]
+    cs = cs.remap_free(free)
+    return {"n": nlp.n, "m": nlp.m, "N": cs.N, "nb": cs.nv + cs.nc,
+            "k": len(cs.bv) + len(cs.bc)}
+
+
+def _lane_iterates(res, tr):
+    """Per converged lane: (time, states, parameters) as numpy."""
+    out = []
+    z = res.z.cpu().numpy()
+    for b in np.nonzero(res.converged.cpu().numpy())[0]:
+        t0, tf, Y, _, _, _, _, _, _, theta = tr.unpack(z[b])
+        out.append((t0 + (tf - t0) * np.asarray(tr.taus), Y, theta))
+    return out
+
+
+def _newton_k1(torch, tr, opts, Z0, launches):
+    """K1 against its plain version on a lane's first Newton blocks (the
+    form of phase 8a: factor, then a 1-column solve). The kernels line
+    takes the result under a key naming its shape, with ``launches``
+    (that lane's solve's counts)."""
+    blocks = _capture_first_newton_blocks(torch, tr, opts,
+                                          tr.initial_guess(), Z0)
+    res = _check_btb(torch, *blocks, (1,), 1, 200)
+    if not res["finite"] or res["max_lane_rel_err"] > KERNEL_RTOL or \
+            res["factor_max_lane_rel_err"] > KERNEL_RTOL:
+        _fail(f"K1 and the plain version disagree at {res['shape']}")
+    sh = res["shape"]
+    key = f"B{sh['B']}_N{sh['N']}_nb{sh['nb']}_k{sh['k']}"
+    res["launches"] = dict(launches)
+    return key, res
+
+
+def _check_lanes(name, stats):
+    if stats["converged"] == 0:
+        _fail(f"{name}: no lane converged")
+    if min(stats["launches"].values()) == 0:
+        _fail(f"{name}: a kernel of the path never launched: "
+              f"{stats['launches']}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the phase results to this "
                     "JSON file")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -459,7 +557,9 @@ def main():
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: this check needs a CUDA "
               "card and has no CPU fallback")
-    from opensim_moco_tpu_torch.examples import hanging_muscle_study
+    from opensim_moco_tpu_torch.examples import (
+        coupler_pendulum_study, double_pendulum_swingup_study,
+        hanging_muscle_study, kirk_min_effort_study, oscillator_mass_study)
     from opensim_moco_tpu_torch.ops import _build
     from opensim_moco_tpu_torch.ops.btb import LAUNCHES
     from opensim_moco_tpu_torch.parallel import batch_guesses
@@ -479,6 +579,7 @@ def main():
                         for name, rep in reports.items()}), flush=True)
     dev = torch.device("cuda")
     out = {"card": card, "kind": kind, "torch": torch.__version__}
+    phase_start = {}
 
     bench = dict(tol=3e-3, bound_relax=1e-6, mu_init=1e-2, kappa_eps=100.0,
                  acceptable_tol_factor=30.0, acceptable_iter=10,
@@ -494,6 +595,7 @@ def main():
 
     # ---- phase 2: full-dynamics lane, dense KKT
     if 2 in phases:
+        phase_start[2] = time.perf_counter()
         res, stats = _solve_lane(torch, tr, opts, z0, Z0[:8], dev)
         print("phase 2 full dynamics, kkt=dense (mesh 25, B=8, f64, cuda): "
               + json.dumps(stats), flush=True)
@@ -503,6 +605,7 @@ def main():
 
     # ---- phase 3: card against CPU, iterate level
     if 3 in phases:
+        phase_start[3] = time.perf_counter()
         par = _iterate_parity(torch, tr, opts, z0, Z0)
         print("phase 3 iterate parity cuda vs cpu after 3 steps, kkt=dense: "
               + json.dumps(par), flush=True)
@@ -513,6 +616,7 @@ def main():
 
     # ---- phase 4: card against CPU, solve level (lanes 0-3)
     if 4 in phases and res is not None:
+        phase_start[4] = time.perf_counter()
         from opensim_moco_tpu_torch.parallel import make_batched_solver
 
         t0 = time.perf_counter()
@@ -541,6 +645,7 @@ def main():
 
     # ---- phase 5: simplified lane, dense KKT
     if 5 in phases:
+        phase_start[5] = time.perf_counter()
         tr_s = hanging_muscle_study(25, ignore_tendon_compliance=True,
                                     ignore_activation_dynamics=True,
                                     tendon_dynamics_implicit=False
@@ -558,6 +663,7 @@ def main():
     # ---- phase 6: full-dynamics lane, kkt="auto" (the JAX bench's mode)
     launches = {}
     if 6 in phases:
+        phase_start[6] = time.perf_counter()
         _, stats6 = _solve_lane(torch, tr, dataclasses.replace(
             opts, kkt="auto"), z0, Z0, dev, LAUNCHES)
         print("phase 6 full dynamics, kkt=auto (mesh 25, B=32, f64, cuda): "
@@ -571,6 +677,7 @@ def main():
 
     # ---- phase 7: full-dynamics lane, kkt="structured" (K1 throughout)
     if 7 in phases:
+        phase_start[7] = time.perf_counter()
         res7, stats7 = _solve_lane(torch, tr, opts_st, z0, Z0, dev,
                                    LAUNCHES)
         launches = stats7["launches"]
@@ -600,6 +707,7 @@ def main():
     # ---- phase 8: K1 against its plain version
     kernels = []
     if 8 in phases:
+        phase_start[8] = time.perf_counter()
         blocks = _capture_first_newton_blocks(torch, tr, opts_st, z0, Z0)
         shapes = {"a_bench_newton": (blocks, (3, 1), 1, 200),
                   "b_random_nb200": (_random_blocks(torch, 8, 16, 200, 4, 2),
@@ -667,6 +775,7 @@ def main():
 
     # ---- phase 9: card against CPU, iterate level, structured
     if 9 in phases:
+        phase_start[9] = time.perf_counter()
         par = _iterate_parity(torch, tr, opts_st, z0, Z0)
         print("phase 9 iterate parity cuda vs cpu after 3 steps, "
               "kkt=structured: " + json.dumps(par), flush=True)
@@ -674,6 +783,160 @@ def main():
         if max(par["max_lane_rel_err"].values()) > ITERATE_RTOL or \
                 not all(par["exact"].values()):
             _fail("phase 9: card and CPU iterates disagree")
+
+    # ---- the constrained lanes (phases 10-14)
+    newton = {}  # K1 checks on the Newton blocks of phases 10 and 13
+    if phases & {10, 11, 14}:
+        tr10 = double_pendulum_swingup_study(
+            25, with_path_constraint=True).transcription()
+        z10 = tr10.initial_guess()
+        Z10 = batch_guesses(tr10, 32, scale=0.05, seed=0)
+        opts10 = IPMOptions(max_iter=200, kkt="structured", **bench)
+    res10 = None
+
+    # ---- phase 10: swing-up with its path constraint, K1 throughout
+    if 10 in phases:
+        phase_start[10] = time.perf_counter()
+        res10, stats10 = _solve_lane(torch, tr10, opts10, z10, Z10, dev,
+                                     LAUNCHES)
+        stats10.update(_kkt_shape(tr10))
+        print("phase 10 swing-up with path constraint, kkt=structured "
+              "(mesh 25, B=32, f64, cuda): " + json.dumps(stats10),
+              flush=True)
+        out["swingup_structured"] = stats10
+        _check_lanes("phase 10", stats10)
+        key, chk = _newton_k1(torch, tr10, opts10, Z10, stats10["launches"])
+        newton[key] = chk
+        print(f"phase 10 K1 vs plain, swing-up Newton blocks {key}: "
+              + json.dumps(chk), flush=True)
+
+    # ---- phase 11: the same lane, dense chol-schur KKT
+    if 11 in phases:
+        phase_start[11] = time.perf_counter()
+        opts11 = dataclasses.replace(opts10, kkt="dense",
+                                     dense_factorization="chol-schur")
+        res11, stats11 = _solve_lane(torch, tr10, opts11, z10, Z10[:8], dev)
+        print("phase 11 swing-up, kkt=dense chol-schur (mesh 25, B=8, f64, "
+              "cuda): " + json.dumps(stats11), flush=True)
+        out["swingup_chol_schur"] = stats11
+        if res10 is not None:
+            both = res10.converged[:8].cpu().numpy() & \
+                res11.converged.cpu().numpy()
+            f10, f11 = res10.f[:8].cpu().numpy(), res11.f.cpu().numpy()
+            rel = np.abs(f11 - f10) / np.abs(f10)
+            worst = float(rel[both].max()) if both.any() else 0.0
+            print(f"phase 11 lanes 0-7 converged in phases 10 and 11: "
+                  f"{int(both.sum())}, max objective rel diff {worst}",
+                  flush=True)
+            if worst > 1e-2:
+                _fail("phase 11: structured and chol-schur objectives "
+                      "differ by more than 1e-2")
+
+    # ---- phase 12: Kirk minimum effort (the generalized spring)
+    if 12 in phases:
+        phase_start[12] = time.perf_counter()
+        tr12 = kirk_min_effort_study(50).transcription()
+        opts12 = IPMOptions(tol=1e-7, max_iter=300, kkt="structured")
+        res12, stats12 = _solve_lane(
+            torch, tr12, opts12, tr12.initial_guess(),
+            batch_guesses(tr12, 8, scale=0.05, seed=0), dev, LAUNCHES)
+        errs = [float(np.abs(Y[:, :2] - kirk_expected(ts)).max())
+                for ts, Y, _ in _lane_iterates(res12, tr12)]
+        stats12["max_state_err"] = max(errs, default=None)
+        print("phase 12 Kirk minimum effort, kkt=structured (mesh 50, B=8, "
+              "f64, cuda): " + json.dumps(stats12), flush=True)
+        out["kirk_structured"] = stats12
+        _check_lanes("phase 12", stats12)
+        if max(errs) > 1e-5:
+            _fail(f"phase 12: states {max(errs)} from the analytic ones")
+
+    # ---- phase 13: kinematic constraint and parameter lanes
+    if phases & {13, 14}:
+        tr13 = coupler_pendulum_study(15).transcription()
+        Z13 = batch_guesses(tr13, 8, scale=0.05, seed=0)
+        opts13 = IPMOptions(tol=1e-6, max_iter=500, kkt="structured")
+    if 13 in phases:
+        phase_start[13] = time.perf_counter()
+        res13, stats13 = _solve_lane(torch, tr13, opts13,
+                                     tr13.initial_guess(), Z13, dev,
+                                     LAUNCHES)
+        stats13.update(_kkt_shape(tr13))
+        errs = [float(np.abs(Y[:, 1] - Y[:, 0]).max())
+                for _, Y, _ in _lane_iterates(res13, tr13)]
+        stats13["max_q1_minus_q0"] = max(errs, default=None)
+        print("phase 13 coupler pendulum, kkt=structured (mesh 15, B=8, "
+              "f64, cuda): " + json.dumps(stats13), flush=True)
+        out["coupler_structured"] = stats13
+        _check_lanes("phase 13 coupler", stats13)
+        if max(errs) > 1e-6:
+            _fail(f"phase 13: |q1 - q0| = {max(errs)} > 1e-6")
+        key, chk = _newton_k1(torch, tr13, opts13, Z13, stats13["launches"])
+        newton[key] = chk
+        print(f"phase 13 K1 vs plain, coupler Newton blocks {key}: "
+              + json.dumps(chk), flush=True)
+
+        tr13o = oscillator_mass_study(40, "endpoint_constraint"
+                                      ).transcription()
+        Z13o = batch_guesses(tr13o, 8, scale=0.05, seed=0)
+        opts13o = IPMOptions(tol=1e-8, max_iter=500, kkt="structured")
+        res13o, stats13o = _solve_lane(torch, tr13o, opts13o,
+                                       tr13o.initial_guess(), Z13o, dev,
+                                       LAUNCHES)
+        stats13o.update(_kkt_shape(tr13o))
+        errs = [float(abs(theta[0] - 1.0))
+                for _, _, theta in _lane_iterates(res13o, tr13o)]
+        stats13o["max_mass_err"] = max(errs, default=None)
+        print("phase 13 oscillator mass, kkt=structured (mesh 40, B=8, f64, "
+              "cuda): " + json.dumps(stats13o), flush=True)
+        out["oscillator_structured"] = stats13o
+        _check_lanes("phase 13 oscillator", stats13o)
+        if max(errs) > 1e-3:
+            _fail(f"phase 13: |m - 1| = {max(errs)} > 1e-3")
+        key, chk = _newton_k1(torch, tr13o, opts13o, Z13o,
+                              stats13o["launches"])
+        newton[key] = chk
+        print(f"phase 13 K1 vs plain, oscillator Newton blocks {key}: "
+              + json.dumps(chk), flush=True)
+
+    # ---- phase 14: card against CPU, iterate level, constrained lanes
+    if 14 in phases:
+        phase_start[14] = time.perf_counter()
+        par14 = {
+            "swingup": _iterate_parity(torch, tr10, opts10, z10, Z10,
+                                       COUNTERS),
+            "coupler": _iterate_parity(torch, tr13, opts13,
+                                       tr13.initial_guess(), Z13, COUNTERS)}
+        print("phase 14 iterate parity cuda vs cpu after 3 steps, "
+              "kkt=structured: " + json.dumps(par14), flush=True)
+        out["iterate_parity_constrained"] = par14
+        for name, par in par14.items():
+            if max(par["max_lane_rel_err"].values()) > ITERATE_RTOL or \
+                    not all(par["exact"].values()):
+                _fail(f"phase 14 {name}: card and CPU iterates disagree")
+
+    # the K1 checks of phases 10 and 13 join the kernels line by shape
+    for key, chk in newton.items():
+        if not kernels:  # phase 8 not run: these shapes lead
+            kernels = [{"name": kern, "route": "cuda",
+                        "source": "opensim_moco_tpu_torch/csrc/btb.cu",
+                        "replaces": "opensim_moco_tpu/solver/structured.py:"
+                        f"{line}", "shape": key + ("_r1" if part == "solve"
+                                                   else ""),
+                        "launches": chk["launches"][kern],
+                        "max_abs_err": chk["max_abs_err"],
+                        **_kernel_times(chk, part)}
+                       for kern, part, line in (("btb_factor", "factor", 337),
+                                                ("btb_solve", "solve", 367))]
+        for entry, part in zip(kernels, ("factor", "solve")):
+            entry[key + ("_r1" if part == "solve" else "")] = {
+                "launches": chk["launches"][entry["name"]],
+                "max_abs_err": chk["max_abs_err"],
+                **_kernel_times(chk, part)}
+
+    marks = sorted(phase_start.items())
+    ends = [t for _, t in marks[1:]] + [time.perf_counter()]
+    print("phase wall seconds: " + json.dumps(
+        {str(n): e - t for (n, t), e in zip(marks, ends)}), flush=True)
 
     if args.out:
         with open(args.out, "w") as fh:

@@ -173,17 +173,20 @@ def oscillator_mass_study(num_mesh_intervals=40, goal_mode="cost"):
     """Optimize a body's mass (the JAX package's
     ``test_parameters.py::test_optimize_oscillator_mass``, after reference
     testMocoParameters.cpp): a unit spring, q(0) = 1, u(0) = 0, no
-    forcing, so q(t) = cos(t / sqrt(m)); the final state at t = pi fixes
-    m = 1.
+    forcing, so q(t) = cos(t / sqrt(m)), and m = 1 is the answer.
 
-    ``goal_mode="cost"``: the JAX test's problem, a custom cost
-    (q(pi) + 1)^2 + u(pi)^2 on m in [0.1, 10]; the cost's ``value_fn``
-    sends it to the dense KKT path. ``"endpoint_constraint"``: the
-    half-period condition u(pi) = 0 as an endpoint-constraint row, so the
-    parameter and that row form the KKT border (k = 2). The bounds narrow
-    to [0.5, 2], the range where m = 1 is u(pi)'s only root and |u(pi)|
-    has no other minimum: from the midpoint of [0.1, 10] the constraint
-    alone leads to m = 10, where |u(pi)| is smallest, in both packages."""
+    ``goal_mode="cost"``: the JAX test's problem, m in [0.1, 10] and a
+    custom cost (q(pi) + 1)^2 + u(pi)^2 whose ``value_fn`` sends it to the
+    dense KKT path. ``"endpoint_constraint"``: the structured form, with
+    the parameter and an endpoint-constraint row in the KKT border
+    (k = 2): the cost tracks the m = 1 motion, an integrand (block-local),
+    and the initial rest u(0) = 0 moves from a bound to a custom
+    endpoint-constraint row. A row on the final state instead
+    (u(pi) = 0) would leave no degree of freedom, a square system that
+    the IPM does not solve from jittered starts (no lane of three at mesh
+    40); m narrows to [0.5, 2], where the tracking cost has no other
+    minimum (from [0.1, 10], 3 jittered lanes of 8 stall near m = 5 at
+    mesh 40)."""
     b = MechModelBuilder(gravity=(0.0, 0.0, 0.0))
     b.add_body("osc", mass=3.0, joint_name="j", kind="prismatic",
                axis=(1, 0, 0), coord_name="q")
@@ -194,7 +197,6 @@ def oscillator_mass_study(num_mesh_intervals=40, goal_mode="cost"):
     prob = Problem(model)
     prob.set_time_bounds(0, np.pi)
     prob.set_state_info("/jointset/j/q/value", (-5, 5), 1.0)
-    prob.set_state_info("/jointset/j/q/speed", (-5, 5), 0.0)
 
     def apply_mass(p, theta):  # out of place: runs under torch.func
         mech = dict(p["mech"])
@@ -202,6 +204,7 @@ def oscillator_mass_study(num_mesh_intervals=40, goal_mode="cost"):
         return {**p, "mech": mech}
 
     if goal_mode == "cost":
+        prob.set_state_info("/jointset/j/q/speed", (-5, 5), 0.0)
         prob.add_parameter("osc_mass", (0.1, 10.0), apply_mass,
                            initial_value=3.0)
         prob.add_goal(CustomGoal(
@@ -209,12 +212,17 @@ def oscillator_mass_study(num_mesh_intervals=40, goal_mode="cost"):
             value_fn=lambda rep, initial, final, integral, p:
             (final[1][..., 0] + 1.0) ** 2 + final[1][..., 1] ** 2))
     elif goal_mode == "endpoint_constraint":
+        prob.set_state_info("/jointset/j/q/speed", (-5, 5))
         prob.add_parameter("osc_mass", (0.5, 2.0), apply_mass,
                            initial_value=3.0)
         prob.add_goal(CustomGoal(
-            name="half_period", mode="endpoint_constraint",
+            name="track",
+            integrand_fn=lambda rep, t, y, x, lam, p:
+            (y[..., 0] - torch.cos(t)) ** 2))
+        prob.add_goal(CustomGoal(
+            name="initial_rest", mode="endpoint_constraint",
             value_fn=lambda rep, initial, final, integral, p:
-            final[1][..., 1]))
+            initial[1][..., 1]))
     else:
         raise ValueError(goal_mode)
 

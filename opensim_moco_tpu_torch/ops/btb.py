@@ -36,12 +36,13 @@ MAX_NB = 738
 # panels (31-33, 63-65; 64 rows is also where a panel passes from one warp
 # to the whole block), 64-wide product tiles, the bound between its shared-
 # and device-memory modes (nb 109-112 for k = 4..0; 115, 116 and 200 in
-# device memory), N = 1 (no L block) and a border of 0; nb 64/65 also
-# crosses the solve's choice between its narrow and its wide kernel
+# device memory), N = 1 (no L block), a border of 0 and of 2 (a parameter
+# and an endpoint-constraint row); nb 64/65 also crosses the solve's choice
+# between its narrow and its wide kernel
 EDGE_NBS = (1, 5, 31, 32, 33, 34, 63, 64, 65, 109, 110, 111, 112, 115, 116,
             200)
 EDGE_SHAPES = [(N, nb, k) for N in (1, 2, 16) for nb in EDGE_NBS
-               for k in (0, 1, 4)]
+               for k in (0, 1, 2, 4)]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

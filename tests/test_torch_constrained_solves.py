@@ -10,8 +10,8 @@ intervals, the JAX test's mesh, it is 3e-7 and the JAX test holds 1e-5).
 
 The oscillator mass (an optimizable parameter): m within 1e-3 of 1, as
 the JAX test holds it, in both goal modes (m = 0.99997 at mesh 10), and
-q(t) within 1e-4 of cos(t) (2.5e-5 at mesh 10; the JAX test holds 2e-3
-at mesh 40).
+q(t) within 1e-4 of cos(t) (up to 3e-5 at mesh 10; the JAX test holds
+2e-3 at mesh 40).
 """
 
 import numpy as np

@@ -1,9 +1,9 @@
 """Optimizable parameters and ``CustomGoal`` in the port against the JAX
 package: the oscillator-mass problem of the JAX package's
 ``test_parameters.py`` (mesh 6), with its custom cost (dense path: no KKT
-structure on either side) and with the half-period condition as an
-endpoint-constraint row (structured: the parameter and the row form the
-border). The JAX package's ``CustomGoal`` has no endpoint-constraint
+structure on either side) and in ``examples.oscillator_mass_study``'s
+structured form (a tracking integrand, and the initial rest as a custom
+endpoint-constraint row: the parameter and the row form the border). The JAX package's ``CustomGoal`` has no endpoint-constraint
 mode; the test gives its JAX twin the ``values`` the port's has. Checks
 and tolerances in ``test_torch_constrained_common.py``."""
 
@@ -36,7 +36,6 @@ def jax_oscillator(mesh, goal_mode):
     prob = Problem(model)
     prob.set_time_bounds(0, np.pi)
     prob.set_state_info("/jointset/j/q/value", (-5, 5), 1.0)
-    prob.set_state_info("/jointset/j/q/speed", (-5, 5), 0.0)
 
     def apply_mass(p, theta):
         mech = dict(p["mech"])
@@ -44,6 +43,7 @@ def jax_oscillator(mesh, goal_mode):
         return {**p, "mech": mech}
 
     if goal_mode == "cost":
+        prob.set_state_info("/jointset/j/q/speed", (-5, 5), 0.0)
         prob.add_parameter("osc_mass", (0.1, 10.0), apply_mass,
                            initial_value=3.0)
         prob.add_goal(CustomGoal(
@@ -51,11 +51,16 @@ def jax_oscillator(mesh, goal_mode):
             value_fn=lambda rep, initial, final, integral, p:
             (final[1][0] + 1.0) ** 2 + final[1][1] ** 2))
     else:
+        prob.set_state_info("/jointset/j/q/speed", (-5, 5))
         prob.add_parameter("osc_mass", (0.5, 2.0), apply_mass,
                            initial_value=3.0)
+        prob.add_goal(CustomGoal(
+            name="track", integrand_fn=lambda rep, t, y, x, lam, p:
+            (y[0] - jnp.cos(t)) ** 2))
         prob.add_goal(_EndpointCustomGoal(
-            name="half_period", mode="endpoint_constraint",
-            value_fn=lambda rep, initial, final, integral, p: final[1][1]))
+            name="initial_rest", mode="endpoint_constraint",
+            value_fn=lambda rep, initial, final, integral, p:
+            initial[1][1]))
     study = Study(prob)
     study.set_solver_options(num_mesh_intervals=mesh)
     return study
@@ -80,7 +85,7 @@ def test_constraints_objective(pair):
 
 def test_kkt_structure(pair):
     trj, trt = pair
-    if trt.cost_goals:  # a cost value_fn: dense path in both packages
+    if any(g.value_fn for g in trt.cost_goals):  # dense in both packages
         assert trj.kkt_structure() is None and trt.kkt_structure() is None
         return
     check_structure(trj, trt)
