@@ -335,8 +335,10 @@ def _check_solve(torch, fk, fp, K, lu, r, seed, reps):
         scale = K.abs().amax((1, 2)) * sol.abs().amax((1, 2))
         return float((res / torch.clamp(scale, min=1.0)).max())
 
+    sol_l = torch.linalg.lu_solve(lu[0], lu[1], rhs)
     out = {"r": r, "max_abs_err": float((sol_k - sol_p).abs().max()),
            "max_lane_rel_err": _lane_rel_err(sol_k, sol_p),
+           "plain_vs_library_lane_rel_err": _lane_rel_err(sol_p, sol_l),
            "backward_err_kernel": backward_err(sol_k),
            "backward_err_plain": backward_err(sol_p),
            "finite": bool(torch.isfinite(sol_k).all()),
@@ -371,7 +373,8 @@ def _check_btb(torch, D, L, Bm, C, rs, seed, reps):
     lu = torch.linalg.lu_factor_ex(K)
     torch.cuda.synchronize()
     out = {"shape": {"B": Bt, "N": N, "nb": nb, "k": k},
-           "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu)}
+           "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu),
+           "max_cond_2": float(torch.linalg.cond(K).max())}
     for r in rs:
         res = _check_solve(torch, fk, fp, K, lu, r, seed, reps)
         if r == rs[0]:
@@ -517,20 +520,33 @@ def _lane_iterates(res, tr):
     return out
 
 
-def _newton_k1(torch, tr, opts, Z0, launches):
-    """K1 against its plain version on a lane's first Newton blocks (the
-    form of phase 8a: factor, then a 1-column solve). The kernels line
-    takes the result under a key naming its shape, with ``launches``
-    (that lane's solve's counts)."""
+def _newton_k1(torch, label, tr, opts, Z0, launches):
+    """K1 against its plain version on a lane's first Newton blocks, in
+    the form of phase 8a: the factor, then a 1-column solve. The factors
+    and the solutions agree per lane to 1e-10, or, where the blocks are
+    too ill-conditioned for that, to ten times the plain version's own
+    spread against the library LU solve of the same system; and K1's
+    backward error is at most ten times the plain version's. (Two
+    backward-stable solves of one system differ by up to its condition
+    number times their backward error: the swing-up's first Newton
+    system has backward errors near 1.7e-10 in both and solutions that
+    differ by 3e-8, K1 from the plain version as the plain version from
+    the library.) The kernels line takes the result under a key naming
+    its shape, with ``launches`` (that lane's solve's counts)."""
     blocks = _capture_first_newton_blocks(torch, tr, opts,
                                           tr.initial_guess(), Z0)
     res = _check_btb(torch, *blocks, (1,), 1, 200)
-    if not res["finite"] or res["max_lane_rel_err"] > KERNEL_RTOL or \
-            res["factor_max_lane_rel_err"] > KERNEL_RTOL:
-        _fail(f"K1 and the plain version disagree at {res['shape']}")
     sh = res["shape"]
     key = f"B{sh['B']}_N{sh['N']}_nb{sh['nb']}_k{sh['k']}"
     res["launches"] = dict(launches)
+    print(f"{label} K1 vs plain, Newton blocks {key}: " + json.dumps(res),
+          flush=True)
+    spread = max(KERNEL_RTOL, 10 * res["plain_vs_library_lane_rel_err"])
+    if not res["finite"] or res["factor_max_lane_rel_err"] > spread \
+            or res["max_lane_rel_err"] > spread or \
+            res["backward_err_kernel"] > 10 * res["backward_err_plain"] + \
+            1e-14:
+        _fail(f"{label}: K1 and the plain version disagree at {key}")
     return key, res
 
 
@@ -805,10 +821,9 @@ def main():
               flush=True)
         out["swingup_structured"] = stats10
         _check_lanes("phase 10", stats10)
-        key, chk = _newton_k1(torch, tr10, opts10, Z10, stats10["launches"])
+        key, chk = _newton_k1(torch, "phase 10 swing-up", tr10, opts10, Z10,
+                              stats10["launches"])
         newton[key] = chk
-        print(f"phase 10 K1 vs plain, swing-up Newton blocks {key}: "
-              + json.dumps(chk), flush=True)
 
     # ---- phase 11: the same lane, dense chol-schur KKT
     if 11 in phases:
@@ -870,10 +885,9 @@ def main():
         _check_lanes("phase 13 coupler", stats13)
         if max(errs) > 1e-6:
             _fail(f"phase 13: |q1 - q0| = {max(errs)} > 1e-6")
-        key, chk = _newton_k1(torch, tr13, opts13, Z13, stats13["launches"])
+        key, chk = _newton_k1(torch, "phase 13 coupler", tr13, opts13, Z13,
+                              stats13["launches"])
         newton[key] = chk
-        print(f"phase 13 K1 vs plain, coupler Newton blocks {key}: "
-              + json.dumps(chk), flush=True)
 
         tr13o = oscillator_mass_study(40, "endpoint_constraint"
                                       ).transcription()
@@ -892,11 +906,9 @@ def main():
         _check_lanes("phase 13 oscillator", stats13o)
         if max(errs) > 1e-3:
             _fail(f"phase 13: |m - 1| = {max(errs)} > 1e-3")
-        key, chk = _newton_k1(torch, tr13o, opts13o, Z13o,
-                              stats13o["launches"])
+        key, chk = _newton_k1(torch, "phase 13 oscillator", tr13o, opts13o,
+                              Z13o, stats13o["launches"])
         newton[key] = chk
-        print(f"phase 13 K1 vs plain, oscillator Newton blocks {key}: "
-              + json.dumps(chk), flush=True)
 
     # ---- phase 14: card against CPU, iterate level, constrained lanes
     if 14 in phases:

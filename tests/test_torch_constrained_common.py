@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch.func import grad
 
+from opensim_moco_tpu import examples as _jex  # noqa: F401  (see below)
 from opensim_moco_tpu.parallel import batch_guesses as jax_batch_guesses
 from opensim_moco_tpu.solver import ipm as jipm
 from opensim_moco_tpu.solver import kkt as jkkt
@@ -42,6 +43,9 @@ from opensim_moco_tpu_torch.solver import ipm as tipm
 from opensim_moco_tpu_torch.solver import structured as ts
 from opensim_moco_tpu_torch.solver.kkt import CompiledStructure
 
+# the JAX package's ``parallel`` imported first runs into its own import
+# cycle (parallel -> transcribe -> ocp -> transcribe); ``examples`` above
+# loads ``ocp`` first, as every other parity test does
 torch.set_num_threads(2)
 
 
