@@ -3,8 +3,9 @@ package's.
 
 Iterate parity: the hanging muscle with full dynamics at mesh 10, B=4
 jittered starts, the bench's IPM options with ``kkt="dense"`` and
-``dense_factorization="chol-schur"`` on both sides, with and without one
-step of iterative refinement, float64 on the CPU. After ``init_fn`` and
+``dense_factorization="chol-schur"`` and one step of iterative
+refinement (``kkt_refine_iters=1``: the plain solve and the refinement
+both run) on both sides, float64 on the CPU. After ``init_fn`` and
 three ``body_fn`` steps, per lane, max |port - JAX| <= 1e-6 * max |JAX|
 for z, nu, wL and wU (as ``test_torch_ipm.py`` explains for the dense
 LU: the KKT's condition numbers near 1e10 amplify last-bit differences of
@@ -15,19 +16,15 @@ only, no exception) and a small non-convex problem that needs the
 regularization loop to escalate.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from opensim_moco_tpu import examples as jex
-from opensim_moco_tpu.solver import ipm as jipm
 from opensim_moco_tpu_torch import examples as tex
-from opensim_moco_tpu_torch.parallel import batch_guesses
 from opensim_moco_tpu_torch.solver import ipm as tipm
 from opensim_moco_tpu_torch.solver.nlp import NLP
 from opensim_moco_tpu_torch.solver.structured import cholesky_factor
+from test_torch_constrained_common import check_iterate_parity
 
 torch.set_num_threads(2)
 
@@ -39,46 +36,11 @@ BENCH = dict(tol=3e-3, max_iter=200, bound_relax=1e-6, mu_init=1e-2,
 RTOL = 1e-6
 
 
-@pytest.fixture(scope="module")
-def problem():
-    trj = jex.hanging_muscle_study(10, **FULL).transcription()
-    trt = tex.hanging_muscle_study(10, **FULL).transcription()
-    Z0 = batch_guesses(trt, 4, scale=0.05, seed=0)
-    return trj, trt, Z0, trt.initial_guess()
-
-
-def _lane_close(port, ref, name):
-    port = port.numpy()
-    ref = np.asarray(ref)
-    assert port.shape == ref.shape, name
-    for b in range(ref.shape[0]):
-        scale = max(np.max(np.abs(ref[b])), 1e-300) if ref[b].size else 1.0
-        err = np.max(np.abs(port[b] - ref[b])) if ref[b].size else 0.0
-        assert err <= RTOL * scale, (name, b, err / scale)
-
-
-@pytest.mark.parametrize("refine", [1])
-def test_chol_schur_iterate_parity_with_jax(problem, refine):
-    trj, trt, Z0, z0 = problem
-    opts = dict(BENCH, kkt_refine_iters=refine)
-    init_j, body_j = (jax.jit(jax.vmap(f)) for f in jipm.make_kernel(
-        trj.make_nlp(), jipm.IPMOptions(**opts), scale_z0=z0)[:2])
-    init_t, body_t, _, _ = tipm.make_kernel(
-        trt.make_nlp("cpu"), tipm.IPMOptions(**opts), scale_z0=z0,
-        device="cpu")
-    cj, ct = init_j(jnp.asarray(Z0)), init_t(Z0)
-    for step in range(4):
-        if step:
-            cj, ct = body_j(cj), body_t(ct)
-        for name in ("z", "nu", "wL", "wU"):
-            _lane_close(getattr(ct, name), getattr(cj, name),
-                        f"{name} after {step} body steps")
-        for name in ("mu", "it", "converged", "filter_count",
-                     "acceptable_count", "rescue_count", "stall_count",
-                     "mu_wait"):
-            np.testing.assert_array_equal(
-                getattr(ct, name).numpy(), np.asarray(getattr(cj, name)),
-                err_msg=f"{name} after {step} body steps")
+def test_chol_schur_iterate_parity_with_jax():
+    check_iterate_parity(
+        jex.hanging_muscle_study(10, **FULL).transcription(),
+        tex.hanging_muscle_study(10, **FULL).transcription(),
+        dict(BENCH, kkt_refine_iters=1), RTOL)
 
 
 def test_indefinite_trial_is_nan_in_its_lane():
