@@ -39,8 +39,6 @@ class Solution:
     raw_iterate: np.ndarray
     multiplier_names: list = dataclasses.field(default_factory=list)
     multipliers: np.ndarray | None = None  # (G, nlam)
-    derivative_names: list = dataclasses.field(default_factory=list)
-    derivatives: np.ndarray | None = None  # (G, nderiv)
     parameter_names: list = dataclasses.field(default_factory=list)
     parameters: np.ndarray | None = None  # (np,)
 
@@ -92,13 +90,7 @@ class Study:
                                 res.converged))
         duration = time.perf_counter() - start
         rep = tr.rep
-        t0, tf, Y, X, L, D, _, _, _, theta = tr.unpack(z)
-        deriv_names = []
-        if tr.implicit_mb:
-            deriv_names += [c + "/accel" for c in rep.model.coordinate_paths()]
-        deriv_names += [
-            f"/forceset/{m}/implicitderiv_normalized_tendon_force"
-            for m in rep.model._implicit_aux]
+        t0, tf, Y, X, L, _, _, _, _, theta = tr.unpack(z)
         converged = bool(conv)
         self._check_constraint_jacobian_rank(tr, Y)
         return Solution(
@@ -106,7 +98,6 @@ class Study:
             state_names=list(rep.state_names), states=Y,
             control_names=list(rep.control_names), controls=X,
             multiplier_names=rep.model.multiplier_names(), multipliers=L,
-            derivative_names=deriv_names, derivatives=D,
             parameter_names=[p.name for p in rep.parameters],
             parameters=theta,
             success=converged,
