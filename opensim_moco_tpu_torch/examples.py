@@ -4,7 +4,8 @@ Counterparts of ``opensim_moco_tpu.examples`` builders, with the same
 signatures and the same problems, plus two problems of the JAX package's
 tests (the coupler-constrained double pendulum of ``test_constraints.py``
 and the oscillator mass of ``test_parameters.py``); each returns a
-ready-to-solve :class:`~opensim_moco_tpu_torch.ocp.study.Study`.
+ready-to-solve :class:`~opensim_moco_tpu_torch.ocp.study.Study`
+(``hanging_muscle_inverse`` an ``Inverse`` tool).
 """
 
 from __future__ import annotations
@@ -45,16 +46,10 @@ def sliding_mass_study(num_mesh_intervals=50, scheme="trapezoidal"):
     return study
 
 
-def hanging_muscle_study(num_mesh_intervals=25,
-                         ignore_activation_dynamics=False,
-                         ignore_tendon_compliance=True,
-                         tendon_dynamics_implicit=False,
-                         scheme="hermite-simpson",
-                         multibody_dynamics_mode="implicit"):
-    """Hanging-muscle minimum time (reference testMocoActuators.cpp
-    createHangingMuscleModel): a DeGrooteFregly2016 muscle between the
-    ground origin and a 0.5 kg body on a slider aligned with gravity;
-    raise the mass from height 0.15 to 0.14 in minimum time."""
+def _hanging_muscle_model(ignore_activation_dynamics,
+                          ignore_tendon_compliance, tendon_dynamics_implicit):
+    """The hanging muscle's body and muscle (reference testMocoActuators.cpp
+    createHangingMuscleModel), not finalized."""
     b = MechModelBuilder(gravity=(9.81, 0.0, 0.0))
     b.add_body("body", mass=0.5, joint_name="joint", kind="prismatic",
                axis=(1, 0, 0), coord_name="height")
@@ -70,6 +65,40 @@ def hanging_muscle_study(num_mesh_intervals=25,
                      ignore_activation_dynamics=ignore_activation_dynamics,
                      ignore_tendon_compliance=ignore_tendon_compliance,
                      tendon_dynamics_implicit=tendon_dynamics_implicit)
+    return model
+
+
+def hanging_muscle_inverse(mesh_interval=0.02, samples=101):
+    """The hanging muscle as an inverse problem: its body and muscle, with
+    activation dynamics and an implicit compliant tendon, plus a reserve
+    on the height (optimal force 1, controls in [-10, 10]), prescribed to
+    q = 0.145 + 0.005 cos 2 pi t on ``samples`` points over [0, 1] s;
+    ``Inverse(mesh_interval, reserves_weight=10)`` (the tool's tolerance
+    and options). Returns the :class:`~opensim_moco_tpu_torch.tools.Inverse`."""
+    from .tools import Inverse
+
+    model = _hanging_muscle_model(False, False, True)
+    model.add_coordinate_actuator("reserve", "height", optimal_force=1.0,
+                                  min_control=-10, max_control=10)
+    times = np.linspace(0.0, 1.0, samples)
+    q = 0.145 + 0.005 * np.cos(2 * np.pi * times)
+    return Inverse(model=model, kinematics=(times, q[:, None]),
+                   mesh_interval=mesh_interval, reserves_weight=10.0)
+
+
+def hanging_muscle_study(num_mesh_intervals=25,
+                         ignore_activation_dynamics=False,
+                         ignore_tendon_compliance=True,
+                         tendon_dynamics_implicit=False,
+                         scheme="hermite-simpson",
+                         multibody_dynamics_mode="implicit"):
+    """Hanging-muscle minimum time (reference testMocoActuators.cpp
+    createHangingMuscleModel): a DeGrooteFregly2016 muscle between the
+    ground origin and a 0.5 kg body on a slider aligned with gravity;
+    raise the mass from height 0.15 to 0.14 in minimum time."""
+    model = _hanging_muscle_model(ignore_activation_dynamics,
+                                  ignore_tendon_compliance,
+                                  tendon_dynamics_implicit)
     model.finalize()
 
     prob = Problem(model)

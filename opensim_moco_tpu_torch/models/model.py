@@ -11,11 +11,12 @@ Generalized forces from muscle paths come from ``torch.func.jvp`` /
 the JAX package. Every per-muscle selection is static (Python indices), so
 no index tensor is built per call and no unused branch is evaluated.
 
-Springs/dampers on coordinates and kinematic constraints (with their
-Lagrange multipliers) are ported. Contacts, external loads, custom control
-forces, wrapping, conditional/moving path points and prescribed motion are
-not ported yet: adding one raises ``NotImplementedError`` (ROADMAP.md,
-queue 1).
+Springs/dampers on coordinates, kinematic constraints (with their
+Lagrange multipliers) and prescribed motion (the MocoInverse structure:
+``y = z`` only, the multibody dynamics a force balance) are ported.
+Contacts, external loads, custom control forces, wrapping and
+conditional/moving path points are not ported yet: adding one raises
+``NotImplementedError`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -99,6 +100,7 @@ class Model:
         self.couplers: list = []  # (dependent, independent, fn)
         self.muscles: list[MuscleSpec] = []
         self._muscle_params: list[dict] = []
+        self.position_motion = None
         self.prescribed = False
         self._finalized = False
 
@@ -273,8 +275,27 @@ class Model:
 
         self.add_kinematic_constraint(name, phi)
 
-    def set_position_motion(self, *args, **kwargs):
-        _unported("prescribed motion")
+    def set_position_motion(self, fn):
+        """Prescribe all coordinates: ``fn(params, t) -> (q, u, udot)``,
+        each (..., nq) for times t (...). The multibody states leave the
+        OCP and the multibody dynamics reduce to a force balance (inverse
+        dynamics), the basis of MocoInverse (JAX
+        ``models/model.py:482``)."""
+        self.position_motion = fn
+
+    def set_position_motion_from_table(self, times, coord_values):
+        """The position motion from sampled coordinates, (K, nq) in
+        coordinate order, through quintic splines (the reference's
+        PositionMotion::createFromTable; JAX ``models/model.py:491``)."""
+        from ..utils.splines import QuinticSpline
+
+        spline = QuinticSpline(times, coord_values)
+
+        def fn(p, t):
+            return (spline(t), spline.derivative(t),
+                    spline.second_derivative(t))
+
+        self.position_motion = fn
 
     # ------------------------------------------------------------- layouts
     def finalize(self):
@@ -286,7 +307,8 @@ class Model:
             if not ms.ignore_tendon_compliance:
                 self._aux_index.append((ms.name, "normalized_tendon_force"))
         self.naux = len(self._aux_index)
-        self.ny = 2 * self.nq + self.naux
+        self.prescribed = self.position_motion is not None
+        self.ny = self.naux if self.prescribed else 2 * self.nq + self.naux
         self.nx = len(self.actuators) + len(self.muscles)
         self._implicit_aux: list[str] = [
             m.name for m in self.muscles
@@ -345,11 +367,13 @@ class Model:
                 for j in self.mech.joints if j.kind != "weld"]
 
     def state_names(self):
+        aux = [f"/forceset/{m}/{kind}" for m, kind in self._aux_index]
+        if self.prescribed:  # the coordinates are data, not states
+            return aux
         cpaths = self.coordinate_paths()
         names = [f"{c}/value" for c in cpaths]
         names += [f"{c}/speed" for c in cpaths]
-        return names + [f"/forceset/{m}/{kind}"
-                        for m, kind in self._aux_index]
+        return names + aux
 
     def control_names(self):
         return ([f"/forceset/{a.name}" for a in self.actuators] +
@@ -364,12 +388,14 @@ class Model:
 
     def default_state_bounds(self):
         """(lo, hi) per state: speeds in [-50, 50], activations inherit
-        the excitation bounds, tendon forces in [0, 5]."""
+        the excitation bounds, tendon forces in [0, 5] (JAX
+        ``models/model.py:621``; no coordinate states when prescribed)."""
         lo = np.full(self.ny, -np.inf)
         hi = np.full(self.ny, np.inf)
-        off = 2 * self.nq
-        lo[self.nq:2 * self.nq] = -50.0
-        hi[self.nq:2 * self.nq] = 50.0
+        off = 0 if self.prescribed else 2 * self.nq
+        if not self.prescribed:
+            lo[self.nq:2 * self.nq] = -50.0
+            hi[self.nq:2 * self.nq] = 50.0
         mus_by_name = {ms.name: ms for ms in self.muscles}
         for i, (m, kind) in enumerate(self._aux_index):
             if kind == "activation":
@@ -402,6 +428,8 @@ class Model:
 
     # ------------------------------------------------------------ splitting
     def split_state(self, y):
+        """(q, u, z) of a full state (not of a prescribed problem's, which
+        holds z alone)."""
         q = y[..., :self.nq]
         u = y[..., self.nq:2 * self.nq]
         z = y[..., 2 * self.nq:]
@@ -496,14 +524,19 @@ class Model:
                 - sp["viscosity"][j] * u[..., s.coord])
         return torch.stack(cols, -1)
 
-    def applied_generalized_forces(self, p, t, q, u, z, x):
+    def applied_generalized_forces(self, p, t, q, u, z, x,
+                                   include_muscles=True,
+                                   include_controls=True):
         """Total applied generalized force f_app(t, y, x, p): actuators,
         springs, and muscle tensions mapped through the path-length
-        Jacobian."""
-        tau = self.tau_controls(p, x)
+        Jacobian. ``include_muscles=False`` / ``include_controls=False``
+        drop those terms, leaving the part that the time alone fixes on a
+        prescribed-kinematics problem (JAX ``models/model.py:858``)."""
+        tau = (self.tau_controls(p, x) if include_controls
+               else torch.zeros_like(q))
         if self.springs:
             tau = tau + self.spring_forces(p, q, u)
-        if not self.muscles:
+        if not (self.muscles and include_muscles):
             return tau
         path = lambda qq: self.path_lengths(p, qq)  # noqa: E731
         L, Ldot = torch.func.jvp(path, (q,), (u,))
@@ -558,6 +591,57 @@ class Model:
         M = self.mech.mass_matrix(p["mech"], q)
         b = self.mech.bias_forces(p["mech"], q, u)
         return mv(M, udot) - (tau - b)
+
+    # ------------------------------------------ prescribed-kinematics cache
+    def prescribed_point_constants(self, p, t):
+        """The constants of the force balance at the grid times ``t`` (G,)
+        of a prescribed-kinematics problem with a fixed time window and no
+        parameters (JAX ``models/model.py:1131``), each with a leading G:
+
+        - ``t, q, u, udot``;
+        - ``tau_net`` = RNEA(q, u, udot) - the passive forces (springs);
+        - ``R`` (G, nm, nq), the moment arms d lMT / dq, one ``jacfwd`` of
+          the path lengths ``vmap``ped over all grid times;
+        - ``lMT, vMT`` (G, nm), the path lengths and their rates;
+        - ``Gc`` (G, nphi, nq), the constraint Jacobian, if any.
+
+        The residual at a grid point is then
+        ``tau_net + R^T F_m - tau_ctrl(x) + Gc^T lam``: no kinematics is
+        left in the NLP functions."""
+        q, u, udot = self.position_motion(p, t)
+        nm = len(self.muscles)
+        G = q.shape[0]
+        if nm:
+            lMT, vMT = self.muscle_path_kinematics(p, q, u)
+            R = torch.func.vmap(torch.func.jacfwd(
+                lambda qq: self.path_lengths(p, qq)))(q)
+        else:
+            lMT = vMT = q.new_zeros((G, 0))
+            R = q.new_zeros((G, 0, self.nq))
+        x0 = q.new_zeros((G, self.nx))
+        z0 = q.new_zeros((G, self.naux))
+        tau_passive = self.applied_generalized_forces(
+            p, t, q, u, z0, x0, include_muscles=False,
+            include_controls=False)
+        tau_net = self.mech.rnea(p["mech"], q, u, udot) - tau_passive
+        out = {"t": t, "q": q, "u": u, "udot": udot, "tau_net": tau_net,
+               "R": R, "lMT": lMT, "vMT": vMT}
+        if self.nphi:
+            out["Gc"] = self.constraint_jacobian(p, q)
+        return out
+
+    def prescribed_residual_cached(self, p, c, z, x, lam):
+        """The force balance at every grid point from the constants ``c``
+        of :meth:`prescribed_point_constants`; z (..., G, naux), x
+        (..., G, nx), lam (..., G, nphi) (JAX ``models/model.py:1174``)."""
+        res = c["tau_net"] - self.tau_controls(p, x)
+        if self.muscles:
+            _, act, ft = self._muscle_vec_state(z, x)
+            F_m = self._muscle_forces_vec(p, act, ft, c["lMT"], c["vMT"])
+            res = res + (c["R"] * F_m.unsqueeze(-1)).sum(-2)
+        if self.nphi:
+            res = res + (c["Gc"] * lam.unsqueeze(-1)).sum(-2)
+        return res
 
     def aux_dynamics(self, p, t, q, u, z, x, implicit_aux_derivs=None,
                      path_kin=None):

@@ -120,14 +120,33 @@ class InitialActivationGoal(Goal):
     def value(self, rep, initial, final, integral, p):
         y0 = initial[1]
         x0 = initial[2]
-        total = torch.zeros_like(y0[..., 0])
+        total = torch.zeros_like(initial[0])
         m = rep.model
-        aux0 = 2 * m.nq
+        aux0 = 0 if m.prescribed else 2 * m.nq  # JAX ocp/goals.py:258
         mus_idx = {ms.name: mi for mi, ms in enumerate(m.muscles)}
         for k, (mname, kind) in enumerate(m._aux_index):
             if kind == "activation":
                 exc = x0[..., len(m.actuators) + mus_idx[mname]]
                 total = total + (exc - y0[..., aux0 + k]) ** 2
+        return total
+
+
+@dataclasses.dataclass
+class SumSquaredStateGoal(Goal):
+    """Sum of squared state values, with an optional name regex and
+    per-state weights (MocoSumSquaredStateGoal; JAX ``ocp/goals.py:165``).
+    Its integrand is per grid point, so its curvature stays in the time
+    blocks (the default ``hessian_block_local``)."""
+    name: str = "sum_squared_state"
+    pattern: str = ".*"
+    state_weights: dict = dataclasses.field(default_factory=dict)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        total = torch.zeros_like(t)
+        for i, sn in enumerate(rep.state_names):
+            if re.fullmatch(self.pattern, sn):
+                w = self.state_weights.get(sn, 1.0)
+                total = total + w * y[..., i] ** 2
         return total
 
 

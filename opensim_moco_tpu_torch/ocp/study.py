@@ -111,10 +111,12 @@ class Study:
         ``ocp/study.py:288``): enforced without its derivatives and without
         multiplier minimization, a rank-deficient G(q) leaves the
         multipliers indeterminate, so log a warning with the same
-        guidance. Evaluated on the CPU at up to 9 grid points."""
+        guidance. Evaluated on the CPU at up to 9 grid points. Skipped for
+        prescribed kinematics, whose q is data (JAX ``ocp/study.py:298``)."""
         rep, opt = tr.rep, tr.opt
         model = rep.model
-        if (not model.nphi or opt.enforce_constraint_derivatives or
+        if (model.prescribed or not model.nphi or
+                opt.enforce_constraint_derivatives or
                 opt.minimize_lagrange_multipliers):
             return
         p = rep.apply_parameters(torch.zeros(rep.np, dtype=torch.float64),

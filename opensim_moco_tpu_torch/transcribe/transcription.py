@@ -75,8 +75,20 @@ class Transcription:
                                                 "trapezoidal"):
             raise ValueError(options.transcription_scheme)
         self.hermite_simpson = options.transcription_scheme == "hermite-simpson"
-        self.prescribed = False
-        self.implicit_mb = options.multibody_dynamics_mode == "implicit"
+        self.prescribed = model.prescribed
+        # prescribed kinematics, a fixed time window and no parameters:
+        # every kinematic quantity of the DAE is a constant of the grid,
+        # folded at build time (JAX transcription.py:81-93); a switch, so
+        # that a test can compare the folded and the general path
+        self.fold_prescribed = bool(
+            model.prescribed and not rep.parameters and
+            rep.t0_bounds[0] == rep.t0_bounds[1] and
+            rep.tf_bounds[0] == rep.tf_bounds[1])
+        self._presc_cache = {}
+        # prescribed: no multibody states and no acceleration variables;
+        # the force balance is an algebraic row of its own
+        self.implicit_mb = (options.multibody_dynamics_mode == "implicit"
+                            and not self.prescribed)
         self.n_zeta = model.n_implicit_aux
         self.nderiv = (self.nq if self.implicit_mb else 0) + self.n_zeta
 
@@ -99,9 +111,11 @@ class Transcription:
         self.taus = taus
         self.G = len(taus)
         # velocity-correction slacks only exist for HS + constraint
-        # derivatives (JAX transcription.py:118-120)
+        # derivatives, and not with prescribed kinematics (JAX
+        # transcription.py:118-120)
         self.n_gamma = (self.nlam if (self.hermite_simpson and self.nlam and
-                                      options.enforce_constraint_derivatives)
+                                      options.enforce_constraint_derivatives
+                                      and not self.prescribed)
                         else 0)
 
         w = np.zeros(self.G)
@@ -263,8 +277,19 @@ class Transcription:
     def _pointwise(self, p, t, y, x, lam, d):
         """DAE on the grid: (ydot (..., G, ny), alg (..., G, n_alg), udot)
         where alg stacks the implicit multibody and implicit auxiliary
-        residuals."""
+        residuals. With prescribed kinematics, ``y`` holds the auxiliary
+        states alone, q, u and udot come from the position motion at the
+        times ``t`` (..., G), and the multibody row is the force balance
+        (JAX transcription.py:296-313)."""
         m = self.rep.model
+        if self.prescribed:
+            q, u, udot = m.position_motion(p, t)
+            zeta = d[..., :self.n_zeta] if self.n_zeta else None
+            alg = [m.multibody_implicit_residual(p, t, q, u, y, x, lam, udot)]
+            if self.n_zeta:
+                alg.append(m.implicit_aux_residuals(p, t, q, u, y, x, zeta))
+            zdot = m.aux_dynamics(p, t, q, u, y, x, zeta)
+            return zdot, torch.cat(alg, -1), udot
         q, u, zz = m.split_state(y)
         if self.implicit_mb:
             zeta = d[..., self.nq:]
@@ -286,15 +311,52 @@ class Transcription:
         return ydot, algv, udot
 
     def _constants(self, device, dtype):
-        """Per-device constants of the NLP functions (made once)."""
+        """Per-device constants of the NLP functions (made once). A folded
+        prescribed problem adds the force balance's constants at the grid
+        times (``"presc"``), computed on ``device`` once per (device,
+        dtype) and reused by every later call."""
         dev = resolve_device(device)
 
         def t(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-        return {"p": self.rep.model.default_params(dev, dtype),
-                "taus": t(self.taus), "dmesh": t(np.diff(self.mesh)),
-                "quad_w": t(self.quad_w)}
+        out = {"p": self.rep.model.default_params(dev, dtype),
+               "taus": t(self.taus), "dmesh": t(np.diff(self.mesh)),
+               "quad_w": t(self.quad_w)}
+        if self.fold_prescribed:
+            out["presc"] = self._prescribed_constants(out["p"], dev, dtype)
+        return out
+
+    def _prescribed_constants(self, p, dev, dtype):
+        """``Model.prescribed_point_constants`` at the grid times of the
+        fixed window (JAX transcription.py:344-362), detached."""
+        key = (dev, dtype)
+        if key not in self._presc_cache:
+            rep = self.rep
+            t0, tf = float(rep.t0_bounds[0]), float(rep.tf_bounds[0])
+            ts = torch.as_tensor(t0 + (tf - t0) * self.taus, dtype=dtype,
+                                 device=dev)
+            consts = rep.model.prescribed_point_constants(p, ts)
+            self._presc_cache[key] = {k: v.detach()
+                                      for k, v in consts.items()}
+        return self._presc_cache[key]
+
+    def _pointwise_folded(self, p, c, y, x, lam, d):
+        """``_pointwise`` of a folded prescribed problem from the grid's
+        constants ``c`` (JAX transcription.py:367-385): the muscle and
+        actuator forces are all that is left to evaluate."""
+        m = self.rep.model
+        zeta = d[..., :self.n_zeta] if self.n_zeta else None
+        pk = (c["lMT"], c["vMT"])
+        alg = [m.prescribed_residual_cached(p, c, y, x, lam)]
+        if self.n_zeta:
+            alg.append(m.implicit_aux_residuals(p, c["t"], c["q"], c["u"], y,
+                                                x, zeta, path_kin=pk))
+        zdot = m.aux_dynamics(p, c["t"], c["q"], c["u"], y, x, zeta,
+                              path_kin=pk)
+        lead = y.shape[:-1]
+        algv = torch.cat([a.expand(lead + a.shape[-1:]) for a in alg], -1)
+        return zdot.expand_as(y), algv, c["udot"]
 
     @staticmethod
     def _endpoints(ts, Y, X, L, D):
@@ -358,7 +420,11 @@ class Transcription:
             dt = (tf - t0).unsqueeze(-1)
             ts = t0.unsqueeze(-1) + dt * C["taus"]
             h = dt * C["dmesh"]
-            F, ALG, UDOT = self._pointwise(p, ts, Y, X, L, D)
+            if "presc" in C:
+                F, ALG, UDOT = self._pointwise_folded(p, C["presc"], Y, X, L,
+                                                      D)
+            else:
+                F, ALG, UDOT = self._pointwise(p, ts, Y, X, L, D)
             lead = z.shape[:-1]
 
             def flat(a):
@@ -394,9 +460,11 @@ class Transcription:
                 out.append(flat(trap))
             if ALG.shape[-1]:
                 out.append(flat(ALG))
-            if self.nlam:
-                # kinematic-constraint errors at the mesh points
-                # (JAX transcription.py:439-447)
+            if self.nlam and not self.prescribed:
+                # kinematic-constraint errors at the mesh points (JAX
+                # transcription.py:436-447); with prescribed kinematics
+                # phi(q) is data, and the multipliers enter the force
+                # balance alone
                 Ym = self._at_mesh(Y)
                 out += [flat(e) for e in self._kc_errors(
                     p, Ym[..., :nq], Ym[..., nq:2 * nq],
@@ -487,10 +555,11 @@ class Transcription:
                 groups.append(("control_midpoint", self.n_int * self.nx))
         else:
             groups.append(("trapezoidal_defect", self.n_int * self.ny))
-        n_alg = (self.nq if self.implicit_mb else 0) + self.n_zeta
+        n_alg = ((self.nq if self.implicit_mb or self.prescribed else 0) +
+                 self.n_zeta)
         if n_alg:
             groups.append(("dae_residual", self.G * n_alg))
-        if self.nlam:
+        if self.nlam and not self.prescribed:
             mult = 3 if self.opt.enforce_constraint_derivatives else 1
             groups.append(("kinematic_constraint",
                            len(self.mesh_idx) * self.nlam * mult))
@@ -511,13 +580,7 @@ class Transcription:
         ``Transcription.kkt_structure`` (transcription.py:617-706).
 
         None (dense path) when fewer than two intervals, or when a cost
-        goal adds cross-block curvature (``Goal.hessian_block_local``).
-        Raises for prescribed motion, which the port does not assemble,
-        rather than building a wrong structure."""
-        if self.prescribed:
-            raise NotImplementedError(
-                "kkt_structure: prescribed motion is not ported yet "
-                "(ROADMAP.md, queue 1)")
+        goal adds cross-block curvature (``Goal.hessian_block_local``)."""
         N = self.n_int
         if N < 2:
             return None
@@ -578,10 +641,11 @@ class Transcription:
                 interval_major(self.nx)
         else:
             interval_major(self.ny)  # trapezoidal defect
-        n_alg = (self.nq if self.implicit_mb else 0) + self.n_zeta
-        if n_alg:
+        n_alg = ((self.nq if self.implicit_mb or self.prescribed else 0) +
+                 self.n_zeta)
+        if n_alg:  # the force balance's nq rows when prescribed
             grid_major(n_alg)
-        if self.nlam:
+        if self.nlam and not self.prescribed:
             mult = 3 if self.opt.enforce_constraint_derivatives else 1
             for _ in range(mult):  # phi, phidot, phiddot
                 mesh_major(self.nlam)

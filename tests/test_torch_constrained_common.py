@@ -123,9 +123,11 @@ def check_structure(trj, trt):
                                           err_msg=name)
 
 
-def check_blocks(trj, trt):
+def check_blocks(trj, trt, objective_only=False):
     """Compressed Jacobian and Hessian blocks of both packages at two
-    lanes (the JAX side jitted lane by lane)."""
+    lanes (the JAX side jitted lane by lane); with ``objective_only`` the
+    Hessian is the objective's alone, as under
+    ``hessian_approximation="objective-only"``."""
     nj, nt = trj.make_nlp(), trt.make_nlp("cpu")
     rng = np.random.default_rng(0)
     Z = np.stack(points(trt))
@@ -136,7 +138,8 @@ def check_blocks(trj, trt):
     c_fn_j = lambda zz: cj * nj.constraints(zz)  # noqa: E731
     bd_j = js.BlockDerivatives(_compiled(nj, jkkt.CompiledStructure), c_fn_j,
                                nj.objective)
-    lag_j = jax.grad(lambda zz, nn: nj.objective(zz) + c_fn_j(zz) @ nn)
+    lag_j = jax.grad(lambda zz, nn: nj.objective(zz) +
+                     (0.0 if objective_only else c_fn_j(zz) @ nn))
     jac_j = jax.jit(bd_j.jac_blocks)
     hess_j = jax.jit(lambda z, nu: bd_j.hess_blocks(lag_j, z, nu))
 
@@ -145,6 +148,8 @@ def check_blocks(trj, trt):
     bd_t = ts.BlockDerivatives(_compiled(nt, CompiledStructure), c_fn_t, "cpu")
 
     def lag_t(zz, nn):
+        if objective_only:
+            return grad(lambda q: nt.objective(q).sum())(zz)
         return grad(lambda q: (nt.objective(q) +
                                (c_fn_t(q) * nn).sum(-1)).sum())(zz)
 

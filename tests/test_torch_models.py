@@ -365,7 +365,6 @@ def test_hanging_model_parity(variant):
     ("add_sphere_contact", ("c", 0, (0, 0, 0), 0.1)),
     ("add_external_force", ("e", 0, None, None)),
     ("add_custom_control_force", ("f", None)),
-    ("set_position_motion", (None,)),
 ])
 def test_unported_model_components_raise(method, args):
     model = TModel(_hanging_slider(TMechModelBuilder))

@@ -233,8 +233,10 @@ def test_helpers_match_dense_autodiff(case):
 
 def test_kkt_structure_guards():
     """No structure (dense path) when a cost goal adds cross-block
-    curvature, as in the JAX package; a raise for prescribed motion, which
-    the port does not assemble."""
+    curvature, as in the JAX package; a structure for prescribed motion
+    that holds every variable and every row once, the force balance's rows
+    among them (``test_torch_prescribed.py`` holds its index arrays
+    against the JAX package's)."""
 
     class EndpointProduct(Goal):
         def value(self, rep, initial, final, integral, p):
@@ -243,7 +245,11 @@ def test_kkt_structure_guards():
     study = tex.sliding_mass_study(6, "trapezoidal")
     study.problem.add_goal(EndpointProduct(name="coupled"))
     assert study.transcription().kkt_structure() is None
-    tr = tex.sliding_mass_study(6, "trapezoidal").transcription()
-    tr.prescribed = True
-    with pytest.raises(NotImplementedError, match="prescribed"):
-        tr.kkt_structure()
+    tr = tex.hanging_muscle_inverse(0.25).build_study().transcription()
+    assert tr.prescribed
+    st = tr.kkt_structure()
+    nlp = tr.make_nlp("cpu")
+    rows = sorted(sum(st.con_blocks, []) + list(st.border_cons))
+    cols = sorted(sum(st.var_blocks, []) + list(st.border_vars))
+    assert rows == list(range(nlp.m)) and cols == list(range(nlp.n))
+    assert dict(tr.constraint_group_info())["dae_residual"] == tr.G * 2
