@@ -76,25 +76,47 @@ The constrained problems, each on its own path through K1:
     between K1 and the plain version, as between the plain version and
     the library LU, and the next steps amplify that.)
 
+The inverse (prescribed-kinematics) problems, through the ``Inverse``
+tool's options (``objective-only`` curvature, no control-midpoint rows,
+the implicit-derivative penalty) with ``max_iter`` cut from the tool's
+2000 to 300, so that a stalled lane does not hold the batch:
+
+15. the hanging-muscle inverse (``examples.hanging_muscle_inverse(0.02)``:
+    activation dynamics, an implicit compliant tendon and a reserve,
+    folded force balance), B=32, under ``kkt="dense"`` and then
+    ``"structured"``, with K1's launches; lanes that converge in both
+    modes have objectives within relative 1e-2; then K1 against its
+    plain version on this lane's first Newton blocks;
+16. the six-muscle arm's inverse (``tests/inverse_arm.py``, mesh interval
+    0.02), B=32, ``kkt="auto"``, which routes every factor and solve
+    through K1 (n+m >= 1200; nb > 64, so the wide solve kernel), with the
+    largest reserve control of the converged lanes; K1 against its plain
+    version on its first Newton blocks; and card against CPU for lanes
+    0-3 as in phase 14 (each of 3 steps alone on the CPU from the card's
+    carry within 1e-6, mu and the counters exact after 3 chained steps).
+
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
 bound, at shape (a), and under a key that names shape (b) the same times
 at shape (b), which the main path does not launch; the solve also under
 a key for its 1-column times at shape (a); and under a key per shape the
 same numbers for the Newton blocks of phases 10 and 13, with the
-launches of that phase's solve. The line before it gives each phase's
+launches of that phase's solve (phases 10, 13, 15 and 16). The line
+before it gives each phase's
 wall seconds. The last line of standard output is the result object.
 Run from the root of the repository::
 
     python3 chip_smoke.py [--out results.json] [--phases 8,10]
 
 ``--phases 8`` builds K1 and runs only its checks (about a minute): the
-loop to iterate on the kernel with.
+loop to iterate on the kernel with; ``--phases 15,16`` runs the inverse
+problems.
 """
 
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -105,6 +127,7 @@ FP64_FLOPS = 67e12  # H100 SXM, FP64 tensor core, NVIDIA data sheet
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ITERATE_RTOL = 1e-6
 KERNEL_RTOL = 1e-10
+COND_MAX_DIM = 1500  # above it, the condition number of lane 0 alone
 COUNTERS = ("mu", "it", "converged", "filter_count", "acceptable_count",
             "rescue_count", "stall_count", "mu_wait")
 
@@ -396,8 +419,11 @@ def _check_btb(torch, D, L, Bm, C, rs, seed, reps):
     lu = torch.linalg.lu_factor_ex(K)
     torch.cuda.synchronize()
     out = {"shape": {"B": Bt, "N": N, "nb": nb, "k": k},
-           "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu),
-           "max_cond_2": float(torch.linalg.cond(K).max())}
+           "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu)}
+    if K.shape[-1] <= COND_MAX_DIM:
+        out["max_cond_2"] = float(torch.linalg.cond(K).max())
+    else:  # an SVD per lane of a system this large takes minutes
+        out["cond_2_lane0"] = float(torch.linalg.cond(K[0]))
     for r in rs:
         res = _check_solve(torch, fk, fp, K, lu, r, seed, reps)
         if r == rs[0]:
@@ -573,6 +599,37 @@ def _newton_k1(torch, label, tr, opts, Z0, launches):
     return key, res
 
 
+def _inverse_options(study, kkt):
+    """The ``Inverse`` tool's IPM options (its ``study``'s), with
+    ``max_iter`` 300 in place of 2000 and the given ``kkt``."""
+    return dataclasses.replace(study.ipm_options, max_iter=300, kkt=kkt)
+
+
+def _arm_inverse(mesh_interval):
+    """The six-muscle arm's ``Inverse`` (``tests/inverse_arm.py``) with the
+    port's classes."""
+    from opensim_moco_tpu_torch.models import MechModelBuilder, muscle
+    from opensim_moco_tpu_torch.models.model import Model
+    from opensim_moco_tpu_torch.tools import Inverse
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import inverse_arm
+
+    return Inverse(model=inverse_arm.build_arm(MechModelBuilder, Model,
+                                               muscle),
+                   kinematics=inverse_arm.kinematics(),
+                   mesh_interval=mesh_interval,
+                   reserves_weight=inverse_arm.RESERVES_WEIGHT)
+
+
+def _lane_controls(res, tr):
+    """Per converged lane: the controls (G, nx) as numpy."""
+    z = res.z.cpu().numpy()
+    return [tr.unpack(z[b])[3]
+            for b in np.nonzero(res.converged.cpu().numpy())[0]]
+
+
 def _check_lanes(name, stats):
     if stats["converged"] == 0:
         _fail(f"{name}: no lane converged")
@@ -585,7 +642,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the phase results to this "
                     "JSON file")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -598,7 +656,8 @@ def main():
               "card and has no CPU fallback")
     from opensim_moco_tpu_torch.examples import (
         coupler_pendulum_study, double_pendulum_swingup_study,
-        hanging_muscle_study, kirk_min_effort_study, oscillator_mass_study)
+        hanging_muscle_inverse, hanging_muscle_study, kirk_min_effort_study,
+        oscillator_mass_study)
     from opensim_moco_tpu_torch.ops import _build
     from opensim_moco_tpu_torch.ops.btb import LAUNCHES
     from opensim_moco_tpu_torch.parallel import batch_guesses
@@ -950,7 +1009,78 @@ def main():
                     ITERATE_RTOL or not all(par["exact"].values()):
                 _fail(f"phase 14 {name}: card and CPU iterates disagree")
 
-    # the K1 checks of phases 10 and 13 join the kernels line by shape
+    # ---- phase 15: hanging-muscle inverse, dense then structured
+    if 15 in phases:
+        phase_start[15] = time.perf_counter()
+        st15 = hanging_muscle_inverse(0.02).build_study()
+        tr15 = st15.transcription()
+        z15 = tr15.initial_guess()
+        Z15 = batch_guesses(tr15, 32, scale=0.05, seed=0)
+        res15 = {}
+        for mode in ("dense", "structured"):
+            res15[mode], stats15 = _solve_lane(
+                torch, tr15, _inverse_options(st15, mode), z15, Z15, dev,
+                LAUNCHES)
+            stats15.update(_kkt_shape(tr15))
+            print(f"phase 15 hanging-muscle inverse, kkt={mode} (mesh "
+                  "interval 0.02, B=32, max_iter 300, f64, cuda): "
+                  + json.dumps(stats15), flush=True)
+            out[f"hanging_inverse_{mode}"] = stats15
+            if mode == "structured":
+                _check_lanes("phase 15 structured", stats15)
+            elif stats15["converged"] == 0:
+                _fail("phase 15 dense: no lane converged")
+        both = (res15["dense"].converged & res15["structured"].converged
+                ).cpu().numpy()
+        f_d = res15["dense"].f.cpu().numpy()
+        f_s = res15["structured"].f.cpu().numpy()
+        rel = np.abs(f_s - f_d) / np.abs(f_d)
+        worst = float(rel[both].max()) if both.any() else 0.0
+        print(f"phase 15 lanes converged under dense and structured: "
+              f"{int(both.sum())}, max objective rel diff {worst}",
+              flush=True)
+        if worst > 1e-2:
+            _fail("phase 15: dense and structured objectives differ by more "
+                  "than 1e-2")
+        key, chk = _newton_k1(torch, "phase 15 hanging inverse", tr15,
+                              _inverse_options(st15, "structured"), Z15,
+                              out["hanging_inverse_structured"]["launches"])
+        newton[key] = chk
+
+    # ---- phase 16: the six-muscle arm's inverse through K1
+    if 16 in phases:
+        phase_start[16] = time.perf_counter()
+        st16 = _arm_inverse(0.02).build_study()
+        tr16 = st16.transcription()
+        z16 = tr16.initial_guess()
+        Z16 = batch_guesses(tr16, 32, scale=0.05, seed=0)
+        opts16 = _inverse_options(st16, "auto")
+        res16, stats16 = _solve_lane(torch, tr16, opts16, z16, Z16, dev,
+                                     LAUNCHES)
+        stats16.update(_kkt_shape(tr16))
+        reserves = [i for i, n in enumerate(tr16.rep.control_names)
+                    if "reserve" in n]
+        stats16["max_abs_reserve"] = max(
+            (float(np.abs(X[:, reserves]).max())
+             for X in _lane_controls(res16, tr16)), default=None)
+        print("phase 16 arm inverse, kkt=auto (mesh interval 0.02, B=32, "
+              "max_iter 300, f64, cuda): " + json.dumps(stats16), flush=True)
+        out["arm_inverse_auto"] = stats16
+        _check_lanes("phase 16", stats16)
+        key, chk = _newton_k1(torch, "phase 16 arm inverse", tr16, opts16,
+                              Z16, stats16["launches"])
+        newton[key] = chk
+        par16 = _iterate_parity(torch, tr16, opts16, z16, Z16[:4], COUNTERS,
+                                stepwise=True)
+        print("phase 16 iterate parity cuda vs cpu, lanes 0-3, 3 steps, "
+              "kkt=auto: " + json.dumps(par16), flush=True)
+        out["iterate_parity_arm_inverse"] = par16
+        if max(par16["stepwise_max_lane_rel_err"].values()) > ITERATE_RTOL \
+                or not all(par16["exact"].values()):
+            _fail("phase 16: card and CPU iterates disagree")
+
+    # the K1 checks of phases 10, 13, 15 and 16 join the kernels line by
+    # shape
     for key, chk in newton.items():
         if not kernels:  # phase 8 not run: these shapes lead
             kernels = [{"name": kern, "route": "cuda",
