@@ -53,7 +53,8 @@ The constrained problems, each on its own path through K1:
     plain version on this lane's first Newton blocks, factor and a
     1-column solve, with times;
 11. the same lane under ``kkt="dense"`` with
-    ``dense_factorization="chol-schur"``, B=8; lanes that converge in
+    ``dense_factorization="chol-schur"``, B=8, ``max_iter`` 100 (it was
+    200 before the inverse phases came); lanes that converge in
     both phases 10 and 11 have objectives within relative 1e-2 (the
     Cholesky of H + Sigma + delta I needs the whole Hessian block
     positive definite: on this non-convex problem the JAX package's
@@ -127,7 +128,9 @@ FP64_FLOPS = 67e12  # H100 SXM, FP64 tensor core, NVIDIA data sheet
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ITERATE_RTOL = 1e-6
 KERNEL_RTOL = 1e-10
-COND_MAX_DIM = 1500  # above it, the condition number of lane 0 alone
+# above this KKT dimension, the condition number of lane 0 alone and a
+# tenth of the timing repetitions
+COND_MAX_DIM = 1500
 COUNTERS = ("mu", "it", "converged", "filter_count", "acceptable_count",
             "rescue_count", "stall_count", "mu_wait")
 
@@ -584,7 +587,10 @@ def _newton_k1(torch, label, tr, opts, Z0, launches):
     its shape, with ``launches`` (that lane's solve's counts)."""
     blocks = _capture_first_newton_blocks(torch, tr, opts,
                                           tr.initial_guess(), Z0)
-    res = _check_btb(torch, *blocks, (1,), 1, 200)
+    D, _, _, C = blocks
+    big = D.shape[1] * D.shape[2] + C.shape[-1] > COND_MAX_DIM
+    # a dense library LU of a system that large takes over a second a call
+    res = _check_btb(torch, *blocks, (1,), 1, 20 if big else 200)
     sh = res["shape"]
     key = f"B{sh['B']}_N{sh['N']}_nb{sh['nb']}_k{sh['k']}"
     res["launches"] = dict(launches)
@@ -910,11 +916,13 @@ def main():
     # ---- phase 11: the same lane, dense chol-schur KKT
     if 11 in phases:
         phase_start[11] = time.perf_counter()
-        opts11 = dataclasses.replace(opts10, kkt="dense",
+        # max_iter 100, not 200: no lane converges here (as in the JAX
+        # package), and the inverse phases need the time
+        opts11 = dataclasses.replace(opts10, kkt="dense", max_iter=100,
                                      dense_factorization="chol-schur")
         res11, stats11 = _solve_lane(torch, tr10, opts11, z10, Z10[:8], dev)
-        print("phase 11 swing-up, kkt=dense chol-schur (mesh 25, B=8, f64, "
-              "cuda): " + json.dumps(stats11), flush=True)
+        print("phase 11 swing-up, kkt=dense chol-schur (mesh 25, B=8, "
+              "max_iter 100, f64, cuda): " + json.dumps(stats11), flush=True)
         out["swingup_chol_schur"] = stats11
         if res10 is not None:
             both = res10.converged[:8].cpu().numpy() & \
