@@ -4,8 +4,8 @@ Counterparts of ``opensim_moco_tpu.examples`` builders, with the same
 signatures and the same problems, plus two problems of the JAX package's
 tests (the coupler-constrained double pendulum of ``test_constraints.py``
 and the oscillator mass of ``test_parameters.py``); each returns a
-ready-to-solve :class:`~opensim_moco_tpu_torch.ocp.study.Study`
-(``hanging_muscle_inverse`` an ``Inverse`` tool).
+ready-to-solve :class:`~opensim_moco_tpu_torch.ocp.study.Study`, but
+``hanging_muscle_inverse``, which returns an ``Inverse`` tool.
 """
 
 from __future__ import annotations

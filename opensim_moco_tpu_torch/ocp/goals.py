@@ -120,7 +120,7 @@ class InitialActivationGoal(Goal):
     def value(self, rep, initial, final, integral, p):
         y0 = initial[1]
         x0 = initial[2]
-        total = torch.zeros_like(initial[0])
+        total = torch.zeros_like(y0[..., 0])
         m = rep.model
         aux0 = 0 if m.prescribed else 2 * m.nq  # JAX ocp/goals.py:258
         mus_idx = {ms.name: mi for mi, ms in enumerate(m.muscles)}

@@ -354,9 +354,7 @@ class Transcription:
                                                 x, zeta, path_kin=pk))
         zdot = m.aux_dynamics(p, c["t"], c["q"], c["u"], y, x, zeta,
                               path_kin=pk)
-        lead = y.shape[:-1]
-        algv = torch.cat([a.expand(lead + a.shape[-1:]) for a in alg], -1)
-        return zdot.expand_as(y), algv, c["udot"]
+        return zdot, torch.cat(alg, -1), c["udot"]
 
     @staticmethod
     def _endpoints(ts, Y, X, L, D):

@@ -9,7 +9,9 @@ package and of the port, on the same kinematics. No tests of its own.
 * ``arm``: the two-link, six-muscle arm of ``inverse_arm.py``;
 * ``arm_coupler``: the arm with q1 = 0.8 + 0.5 (q0 - 0.3) as a coordinate
   coupler, so that the prescribed problem carries a multiplier, and the
-  tool projects the dependent column of the kinematics onto it.
+  tool projects the dependent column of the kinematics onto it;
+* ``hanging_activation_effort``: ``hanging`` with
+  ``minimize_sum_squared_activations`` (``SumSquaredStateGoal``).
 """
 
 import numpy as np
@@ -69,9 +71,13 @@ def arm_inverse(package, mesh_interval, coupler=False):
 
 def inverses(name, mesh_interval):
     """(JAX Inverse, port Inverse) of one problem."""
-    if name == "hanging":
-        return (jax_hanging_inverse(mesh_interval),
+    if name.startswith("hanging"):
+        pair = (jax_hanging_inverse(mesh_interval),
                 tex.hanging_muscle_inverse(mesh_interval))
+        for inv in pair:
+            inv.minimize_sum_squared_activations = \
+                name == "hanging_activation_effort"
+        return pair
     coupler = name == "arm_coupler"
     return (arm_inverse("jax", mesh_interval, coupler),
             arm_inverse("torch", mesh_interval, coupler))

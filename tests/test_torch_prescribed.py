@@ -1,7 +1,8 @@
 """Prescribed kinematics in the port against the JAX package, float64 on
-the CPU: the hanging-muscle inverse, the six-muscle arm and the arm with a
-coordinate coupler (a multiplier in the force balance), each through the
-``Inverse`` tool at mesh_interval 0.1 (``test_torch_inverse_common.py``).
+the CPU: the hanging-muscle inverse (also with the activation-effort goal,
+``SumSquaredStateGoal``), the six-muscle arm and the arm with a coordinate
+coupler (a multiplier in the force balance), each through the ``Inverse``
+tool at mesh_interval 0.1 (``test_torch_inverse_common.py``).
 
 * ``Model.prescribed_point_constants`` at the grid times and
   ``prescribed_residual_cached`` at seeded states, controls and
@@ -24,7 +25,7 @@ from test_torch_constrained_common import (check_blocks, check_functions,
                                            check_layout, check_structure, rel)
 from test_torch_inverse_common import transcriptions
 
-PROBLEMS = ("hanging", "arm", "arm_coupler")
+PROBLEMS = ("hanging", "hanging_activation_effort", "arm", "arm_coupler")
 
 
 @pytest.fixture(scope="module", params=PROBLEMS)
