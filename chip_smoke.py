@@ -53,8 +53,8 @@ The constrained problems, each on its own path through K1:
     plain version on this lane's first Newton blocks, factor and a
     1-column solve, with times;
 11. the same lane under ``kkt="dense"`` with
-    ``dense_factorization="chol-schur"``, B=8, ``max_iter`` 100 (it was
-    200 before the inverse phases came); lanes that converge in
+    ``dense_factorization="chol-schur"``, B=8, ``max_iter`` 100 (the
+    script's time goes to the inverse phases); lanes that converge in
     both phases 10 and 11 have objectives within relative 1e-2 (the
     Cholesky of H + Sigma + delta I needs the whole Hessian block
     positive definite: on this non-convex problem the JAX package's
@@ -130,7 +130,7 @@ ITERATE_RTOL = 1e-6
 KERNEL_RTOL = 1e-10
 # above this KKT dimension, the condition number of lane 0 alone and a
 # tenth of the timing repetitions
-COND_MAX_DIM = 1500
+LARGE_KKT_DIM = 1500
 COUNTERS = ("mu", "it", "converged", "filter_count", "acceptable_count",
             "rescue_count", "stall_count", "mu_wait")
 
@@ -423,7 +423,7 @@ def _check_btb(torch, D, L, Bm, C, rs, seed, reps):
     torch.cuda.synchronize()
     out = {"shape": {"B": Bt, "N": N, "nb": nb, "k": k},
            "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu)}
-    if K.shape[-1] <= COND_MAX_DIM:
+    if K.shape[-1] <= LARGE_KKT_DIM:
         out["max_cond_2"] = float(torch.linalg.cond(K).max())
     else:  # an SVD per lane of a system this large takes minutes
         out["cond_2_lane0"] = float(torch.linalg.cond(K[0]))
@@ -563,12 +563,13 @@ def _kkt_shape(tr):
 
 
 def _lane_iterates(res, tr):
-    """Per converged lane: (time, states, parameters) as numpy."""
+    """Per converged lane: (time, states, controls, parameters) as
+    numpy."""
     out = []
     z = res.z.cpu().numpy()
     for b in np.nonzero(res.converged.cpu().numpy())[0]:
-        t0, tf, Y, _, _, _, _, _, _, theta = tr.unpack(z[b])
-        out.append((t0 + (tf - t0) * np.asarray(tr.taus), Y, theta))
+        t0, tf, Y, X, _, _, _, _, _, theta = tr.unpack(z[b])
+        out.append((t0 + (tf - t0) * np.asarray(tr.taus), Y, X, theta))
     return out
 
 
@@ -588,7 +589,7 @@ def _newton_k1(torch, label, tr, opts, Z0, launches):
     blocks = _capture_first_newton_blocks(torch, tr, opts,
                                           tr.initial_guess(), Z0)
     D, _, _, C = blocks
-    big = D.shape[1] * D.shape[2] + C.shape[-1] > COND_MAX_DIM
+    big = D.shape[1] * D.shape[2] + C.shape[-1] > LARGE_KKT_DIM
     # a dense library LU of a system that large takes over a second a call
     res = _check_btb(torch, *blocks, (1,), 1, 20 if big else 200)
     sh = res["shape"]
@@ -627,13 +628,6 @@ def _arm_inverse(mesh_interval):
                    kinematics=inverse_arm.kinematics(),
                    mesh_interval=mesh_interval,
                    reserves_weight=inverse_arm.RESERVES_WEIGHT)
-
-
-def _lane_controls(res, tr):
-    """Per converged lane: the controls (G, nx) as numpy."""
-    z = res.z.cpu().numpy()
-    return [tr.unpack(z[b])[3]
-            for b in np.nonzero(res.converged.cpu().numpy())[0]]
 
 
 def _check_lanes(name, stats):
@@ -916,8 +910,8 @@ def main():
     # ---- phase 11: the same lane, dense chol-schur KKT
     if 11 in phases:
         phase_start[11] = time.perf_counter()
-        # max_iter 100, not 200: no lane converges here (as in the JAX
-        # package), and the inverse phases need the time
+        # max_iter 100: no lane converges here (nor in the JAX package),
+        # and the script's time goes to the inverse phases
         opts11 = dataclasses.replace(opts10, kkt="dense", max_iter=100,
                                      dense_factorization="chol-schur")
         res11, stats11 = _solve_lane(torch, tr10, opts11, z10, Z10[:8], dev)
@@ -946,7 +940,7 @@ def main():
             torch, tr12, opts12, tr12.initial_guess(),
             batch_guesses(tr12, 8, scale=0.05, seed=0), dev, LAUNCHES)
         errs = [float(np.abs(Y[:, :2] - kirk_expected(ts)).max())
-                for ts, Y, _ in _lane_iterates(res12, tr12)]
+                for ts, Y, _, _ in _lane_iterates(res12, tr12)]
         stats12["max_state_err"] = max(errs, default=None)
         print("phase 12 Kirk minimum effort, kkt=structured (mesh 50, B=8, "
               "f64, cuda): " + json.dumps(stats12), flush=True)
@@ -967,7 +961,7 @@ def main():
                                      LAUNCHES)
         stats13.update(_kkt_shape(tr13))
         errs = [float(np.abs(Y[:, 1] - Y[:, 0]).max())
-                for _, Y, _ in _lane_iterates(res13, tr13)]
+                for _, Y, _, _ in _lane_iterates(res13, tr13)]
         stats13["max_q1_minus_q0"] = max(errs, default=None)
         print("phase 13 coupler pendulum, kkt=structured (mesh 15, B=8, "
               "f64, cuda): " + json.dumps(stats13), flush=True)
@@ -988,7 +982,7 @@ def main():
                                        LAUNCHES)
         stats13o.update(_kkt_shape(tr13o))
         errs = [float(abs(theta[0] - 1.0))
-                for _, _, theta in _lane_iterates(res13o, tr13o)]
+                for _, _, _, theta in _lane_iterates(res13o, tr13o)]
         stats13o["max_mass_err"] = max(errs, default=None)
         print("phase 13 oscillator mass, kkt=structured (mesh 40, B=8, f64, "
               "cuda): " + json.dumps(stats13o), flush=True)
@@ -1070,7 +1064,7 @@ def main():
                     if "reserve" in n]
         stats16["max_abs_reserve"] = max(
             (float(np.abs(X[:, reserves]).max())
-             for X in _lane_controls(res16, tr16)), default=None)
+             for _, _, X, _ in _lane_iterates(res16, tr16)), default=None)
         print("phase 16 arm inverse, kkt=auto (mesh interval 0.02, B=32, "
               "max_iter 300, f64, cuda): " + json.dumps(stats16), flush=True)
         out["arm_inverse_auto"] = stats16
