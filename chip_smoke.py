@@ -53,8 +53,7 @@ The constrained problems, each on its own path through K1:
     plain version on this lane's first Newton blocks, factor and a
     1-column solve, with times;
 11. the same lane under ``kkt="dense"`` with
-    ``dense_factorization="chol-schur"``, B=8, ``max_iter`` 100 (the
-    script's time goes to the inverse phases); lanes that converge in
+    ``dense_factorization="chol-schur"``, B=8; lanes that converge in
     both phases 10 and 11 have objectives within relative 1e-2 (the
     Cholesky of H + Sigma + delta I needs the whole Hessian block
     positive definite: on this non-convex problem the JAX package's
@@ -92,9 +91,12 @@ the implicit-derivative penalty) with ``max_iter`` cut from the tool's
     0.02), B=32, ``kkt="auto"``, which routes every factor and solve
     through K1 (n+m >= 1200; nb > 64, so the wide solve kernel), with the
     largest reserve control of the converged lanes; K1 against its plain
-    version on its first Newton blocks; and card against CPU for lanes
-    0-3 as in phase 14 (each of 3 steps alone on the CPU from the card's
-    carry within 1e-6, mu and the counters exact after 3 chained steps).
+    version on its first Newton blocks; K1's times on random blocks at
+    the arm's inner block width and at the width every block is padded
+    to (its last block carries the final mesh point); and card against
+    CPU for lanes 0-3 as in phase 14 (each of 3 steps alone on the CPU
+    from the card's carry within 1e-6, mu and the counters exact after 3
+    chained steps).
 
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
@@ -128,9 +130,11 @@ FP64_FLOPS = 67e12  # H100 SXM, FP64 tensor core, NVIDIA data sheet
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 ITERATE_RTOL = 1e-6
 KERNEL_RTOL = 1e-10
-# above this KKT dimension, the condition number of lane 0 alone and a
-# tenth of the timing repetitions
-LARGE_KKT_DIM = 1500
+# above this KKT dimension (phase 16's 6,300 rows; phase 8b's are 3,204),
+# the condition number of lane 0 alone and a tenth of the timing
+# repetitions: there a library LU takes over a second a call, and an SVD
+# of every lane minutes
+LARGE_KKT_DIM = 4000
 COUNTERS = ("mu", "it", "converged", "filter_count", "acceptable_count",
             "rescue_count", "stall_count", "mu_wait")
 
@@ -425,7 +429,7 @@ def _check_btb(torch, D, L, Bm, C, rs, seed, reps):
            "factor_max_lane_rel_err": _lane_rel_err(fk.S_lu, fp.S_lu)}
     if K.shape[-1] <= LARGE_KKT_DIM:
         out["max_cond_2"] = float(torch.linalg.cond(K).max())
-    else:  # an SVD per lane of a system this large takes minutes
+    else:
         out["cond_2_lane0"] = float(torch.linalg.cond(K[0]))
     for r in rs:
         res = _check_solve(torch, fk, fp, K, lu, r, seed, reps)
@@ -496,6 +500,26 @@ def _random_blocks(torch, Bt, N, nb, k, seed):
     return t(D), t(L), t(Bm), t(C)
 
 
+def _padding_cost(torch, Bt, N, nbs, k, reps):
+    """K1's factor and 1-column solve times on random blocks of each width
+    in ``nbs`` at (Bt, N, k): what padding every block to the widest one
+    costs."""
+    from opensim_moco_tpu_torch.ops import btb as k1
+
+    out = {}
+    for nb in nbs:
+        D, L, Bm, C = _random_blocks(torch, Bt, N, nb, k, 4)
+        fk = k1.btb_factor(D, L, Bm, C)
+        rhs_T = torch.ones(Bt, N, nb, dtype=D.dtype, device=D.device)
+        rhs_C = torch.ones(Bt, k, dtype=D.dtype, device=D.device)
+        out[f"nb{nb}"] = {
+            "factor_ms": _events_ms(
+                torch, lambda: k1.btb_factor(D, L, Bm, C), reps),
+            "solve_ms": _events_ms(
+                torch, lambda: k1.btb_solve(fk, rhs_T, rhs_C), reps)}
+    return out
+
+
 SWEEP_RS = (1, 2, 9)
 
 
@@ -549,7 +573,8 @@ def kirk_expected(time):
 
 def _kkt_shape(tr):
     """n, m and K1's block shape (N, nb, k) of a transcription's NLP once
-    the solver has eliminated its fixed variables."""
+    the solver has eliminated its fixed variables, and ``nb_inner``, the
+    widest block but the last (every block is padded to ``nb``)."""
     from opensim_moco_tpu_torch.solver.kkt import CompiledStructure
 
     nlp = tr.make_nlp("cpu")
@@ -558,8 +583,9 @@ def _kkt_shape(tr):
                            st.border_cons, nlp.n, nlp.m)
     free = np.nonzero(~(np.isfinite(nlp.lb) & (nlp.lb == nlp.ub)))[0]
     cs = cs.remap_free(free)
+    widths = cs.Vm.sum(1) + cs.Cm.sum(1)
     return {"n": nlp.n, "m": nlp.m, "N": cs.N, "nb": cs.nv + cs.nc,
-            "k": len(cs.bv) + len(cs.bc)}
+            "nb_inner": int(widths[:-1].max()), "k": len(cs.bv) + len(cs.bc)}
 
 
 def _lane_iterates(res, tr):
@@ -590,7 +616,6 @@ def _newton_k1(torch, label, tr, opts, Z0, launches):
                                           tr.initial_guess(), Z0)
     D, _, _, C = blocks
     big = D.shape[1] * D.shape[2] + C.shape[-1] > LARGE_KKT_DIM
-    # a dense library LU of a system that large takes over a second a call
     res = _check_btb(torch, *blocks, (1,), 1, 20 if big else 200)
     sh = res["shape"]
     key = f"B{sh['B']}_N{sh['N']}_nb{sh['nb']}_k{sh['k']}"
@@ -910,13 +935,11 @@ def main():
     # ---- phase 11: the same lane, dense chol-schur KKT
     if 11 in phases:
         phase_start[11] = time.perf_counter()
-        # max_iter 100: no lane converges here (nor in the JAX package),
-        # and the script's time goes to the inverse phases
-        opts11 = dataclasses.replace(opts10, kkt="dense", max_iter=100,
+        opts11 = dataclasses.replace(opts10, kkt="dense",
                                      dense_factorization="chol-schur")
         res11, stats11 = _solve_lane(torch, tr10, opts11, z10, Z10[:8], dev)
-        print("phase 11 swing-up, kkt=dense chol-schur (mesh 25, B=8, "
-              "max_iter 100, f64, cuda): " + json.dumps(stats11), flush=True)
+        print("phase 11 swing-up, kkt=dense chol-schur (mesh 25, B=8, f64, "
+              "cuda): " + json.dumps(stats11), flush=True)
         out["swingup_chol_schur"] = stats11
         if res10 is not None:
             both = res10.converged[:8].cpu().numpy() & \
@@ -1072,6 +1095,12 @@ def main():
         key, chk = _newton_k1(torch, "phase 16 arm inverse", tr16, opts16,
                               Z16, stats16["launches"])
         newton[key] = chk
+        pad16 = _padding_cost(torch, 32, stats16["N"],
+                              (stats16["nb_inner"], stats16["nb"]),
+                              stats16["k"], 20)
+        print("phase 16 K1 on random blocks at the arm's inner and padded "
+              "widths (B=32): " + json.dumps(pad16), flush=True)
+        out["arm_inverse_padding"] = pad16
         par16 = _iterate_parity(torch, tr16, opts16, z16, Z16[:4], COUNTERS,
                                 stepwise=True)
         print("phase 16 iterate parity cuda vs cpu, lanes 0-3, 3 steps, "

@@ -68,11 +68,11 @@ def _hanging_muscle_model(ignore_activation_dynamics,
     return model
 
 
-def hanging_muscle_inverse(mesh_interval=0.02, samples=101):
+def hanging_muscle_inverse(mesh_interval=0.02):
     """The hanging muscle as an inverse problem: its body and muscle, with
     activation dynamics and an implicit compliant tendon, plus a reserve
     on the height (optimal force 1, controls in [-10, 10]), prescribed to
-    q = 0.145 + 0.005 cos 2 pi t on ``samples`` points over [0, 1] s;
+    q = 0.145 + 0.005 cos 2 pi t on 101 points over [0, 1] s;
     ``Inverse(mesh_interval, reserves_weight=10)`` (the tool's tolerance
     and options). Returns the :class:`~opensim_moco_tpu_torch.tools.Inverse`."""
     from .tools import Inverse
@@ -80,7 +80,7 @@ def hanging_muscle_inverse(mesh_interval=0.02, samples=101):
     model = _hanging_muscle_model(False, False, True)
     model.add_coordinate_actuator("reserve", "height", optimal_force=1.0,
                                   min_control=-10, max_control=10)
-    times = np.linspace(0.0, 1.0, samples)
+    times = np.linspace(0.0, 1.0, 101)
     q = 0.145 + 0.005 * np.cos(2 * np.pi * times)
     return Inverse(model=model, kinematics=(times, q[:, None]),
                    mesh_interval=mesh_interval, reserves_weight=10.0)

@@ -10,9 +10,10 @@ and ``q1`` (elbow, 0.3 m down the first link), under gravity (0, -9.81,
 compliant tendons span fixed path points: a flexor and an extensor at the
 shoulder, at the elbow, and across both joints. Each has F_max = 400 N,
 l_opt = 0.55 l0 and l_slack = 0.45 l0, with l0 its path length at the
-mean of the kinematics' samples, (q0, q1) = (0.3, 0.7960396). Reserves (optimal force 1, controls in
-[-50, 50]) act on both coordinates. The kinematics: q0 = 0.3 + 0.3 sin
-2 pi t and q1 = 0.8 - 0.4 cos 2 pi t, 101 samples over [0, 1] s.
+mean of the kinematics' samples, (q0, q1) = (0.3, 0.7960396). Reserves
+(optimal force 1, controls in [-50, 50]) act on both coordinates. The
+kinematics: q0 = 0.3 + 0.3 sin 2 pi t and q1 = 0.8 - 0.4 cos 2 pi t, 101
+samples over [0, 1] s.
 """
 
 import numpy as np
@@ -43,9 +44,9 @@ L0 = (0.10886552, 0.14269787, 0.22156464, 0.19338177, 0.33520891,
       0.33125292)
 
 
-def kinematics(samples=101):
+def kinematics():
     """(times (K,), values (K, 2)) of the prescribed motion."""
-    t = np.linspace(0.0, 1.0, samples)
+    t = np.linspace(0.0, 1.0, 101)
     q0 = 0.3 + 0.3 * np.sin(2 * np.pi * t)
     q1 = 0.8 - 0.4 * np.cos(2 * np.pi * t)
     return t, np.stack([q0, q1], axis=1)

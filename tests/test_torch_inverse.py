@@ -12,18 +12,29 @@
   implicit-derivative penalty); and both packages' ``Study.solve`` from
   the guess: both converge, objectives within relative 1e-3, controls
   within 1e-3.
+* The kinematics as a ``StoTable``: written with ``write_sto``, read back
+  with each package's ``read_sto``, the coordinates' columns found by
+  name among others. The port's transcription equals its own from the
+  ``(times, values)`` form and the JAX package's from its table, on the
+  hanging muscle and on the arm with a coupler (whose stale dependent
+  column the tool projects).
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
+
+from opensim_moco_tpu.utils import tables as jtab
 
 from opensim_moco_tpu_torch.models import MechModelBuilder
 from opensim_moco_tpu_torch.models import muscle as dgf
 from opensim_moco_tpu_torch.models.model import Model
 from opensim_moco_tpu_torch.tools import Inverse
-from test_torch_constrained_common import check_iterate_parity
+from opensim_moco_tpu_torch.utils import tables as ttab
+from test_torch_constrained_common import (check_functions,
+                                           check_iterate_parity, points)
 from test_torch_inverse_common import inverses
 
 
@@ -115,3 +126,27 @@ def test_hanging_inverse_solve_matches_jax(studies):
     assert sol_t.state_names == list(sol_j.state_names) == [
         "/forceset/muscle/activation",
         "/forceset/muscle/normalized_tendon_force"]
+
+
+@pytest.mark.parametrize("name", ["hanging", "arm_coupler"])
+def test_inverse_from_sto_table(tmp_path, name):
+    _, tuple_form = inverses(name, 0.1)
+    ij, it = inverses(name, 0.1)
+    times, values = it.kinematics
+    paths = [f"{c}/value" for c in it.model.coordinate_paths()]
+    # the coordinates in reverse order after a column the tool ignores
+    cols = ["/forceset/unused"] + paths[::-1]
+    data = np.column_stack([np.ones_like(times), values[:, ::-1]])
+    path = str(tmp_path / "kinematics.sto")
+    ttab.write_sto(path, ttab.StoTable(times, cols, data,
+                                       {"inDegrees": "no"}))
+    ij.kinematics, it.kinematics = jtab.read_sto(path), ttab.read_sto(path)
+
+    trt = it.build_study().transcription()
+    tr_tuple = tuple_form.build_study().transcription()
+    nt, nu = trt.make_nlp("cpu"), tr_tuple.make_nlp("cpu")
+    for z in points(trt):
+        zt = torch.as_tensor(z)
+        assert torch.equal(nt.constraints(zt), nu.constraints(zt))
+        assert torch.equal(nt.objective(zt), nu.objective(zt))
+    check_functions(ij.build_study().transcription(), trt)

@@ -28,7 +28,7 @@ from opensim_moco_tpu_torch.models.model import Model as TModel
 from opensim_moco_tpu_torch.tools import Inverse as TInverse
 
 
-def jax_hanging_inverse(mesh_interval, samples=101):
+def jax_hanging_inverse(mesh_interval):
     """The JAX package's counterpart of ``examples.hanging_muscle_inverse``."""
     b = JBuilder(gravity=(9.81, 0.0, 0.0))
     b.add_body("body", mass=0.5, joint_name="joint", kind="prismatic",
@@ -46,7 +46,7 @@ def jax_hanging_inverse(mesh_interval, samples=101):
                      tendon_dynamics_implicit=True)
     model.add_coordinate_actuator("reserve", "height", optimal_force=1.0,
                                   min_control=-10, max_control=10)
-    times = np.linspace(0.0, 1.0, samples)
+    times = np.linspace(0.0, 1.0, 101)
     q = 0.145 + 0.005 * np.cos(2 * np.pi * times)
     return JInverse(model=model, kinematics=(times, q[:, None]),
                     mesh_interval=mesh_interval, reserves_weight=10.0)
