@@ -98,13 +98,29 @@ the implicit-derivative penalty) with ``max_iter`` cut from the tool's
     from the card's carry within 1e-6, mu and the counters exact after 3
     chained steps).
 
+The gait-model parts (custom joints, smooth sphere contact, the gait
+goals), on the planar contact leg of ``tests/contact_leg.py``
+(``examples.contact_leg_study(50)``: a squat tracked with
+``StateTrackingGoal``, ``ContactTrackingGoal`` and an effort goal, the
+``PeriodicityGoal`` rows in K1's border):
+
+17. the contact leg, B=32, the bench's IPM options with
+    ``objective-only`` curvature (as the JAX bench's gait2d lane),
+    ``kkt="structured"`` (every factor and solve through K1), with n, m,
+    K1's shape (N, the padded nb, the inner blocks' width and k) and
+    launches; then K1 against its plain version on this lane's first
+    Newton blocks;
+18. card against CPU for lanes 0-3 of phase 17 as in phase 14 (each of 3
+    steps alone on the CPU from the card's carry within 1e-6, mu and the
+    counters exact after 3 chained steps).
+
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
 bound, at shape (a), and under a key that names shape (b) the same times
 at shape (b), which the main path does not launch; the solve also under
 a key for its 1-column times at shape (a); and under a key per shape the
 same numbers for the Newton blocks of phases 10 and 13, with the
-launches of that phase's solve (phases 10, 13, 15 and 16). The line
+launches of that phase's solve (phases 10, 13, 15, 16 and 17). The line
 before it gives each phase's
 wall seconds. The last line of standard output is the result object.
 Run from the root of the repository::
@@ -113,7 +129,7 @@ Run from the root of the repository::
 
 ``--phases 8`` builds K1 and runs only its checks (about a minute): the
 loop to iterate on the kernel with; ``--phases 15,16`` runs the inverse
-problems.
+problems and ``--phases 17,18`` the contact leg.
 """
 
 import argparse
@@ -599,31 +615,53 @@ def _lane_iterates(res, tr):
     return out
 
 
+def _factor_spread(torch, D, L, Bm, C):
+    """How far the plain factor moves when its inputs are rounded another
+    way: the per-lane relative change of the Schur blocks' LU when every
+    input entry is scaled by 1 +- 2^-52 (random signs, fixed seed)."""
+    from opensim_moco_tpu_torch.solver import structured as plain
+
+    gen = torch.Generator(device=D.device).manual_seed(0)
+
+    def nudge(a):
+        sign = torch.randint(0, 2, a.shape, generator=gen,
+                             device=a.device).to(a.dtype) * 2 - 1
+        return a * (1 + sign * 2.0 ** -52)
+
+    ref = plain.btb_factor(D, L, Bm, C).S_lu
+    moved = plain.btb_factor(nudge(D), nudge(L), nudge(Bm), nudge(C)).S_lu
+    return _lane_rel_err(moved, ref)
+
+
 def _newton_k1(torch, label, tr, opts, Z0, launches):
     """K1 against its plain version on a lane's first Newton blocks, in
     the form of phase 8a: the factor, then a 1-column solve. The factors
     and the solutions agree per lane to 1e-10, or, where the blocks are
     too ill-conditioned for that, to ten times the plain version's own
-    spread against the library LU solve of the same system; and K1's
-    backward error is at most ten times the plain version's. (Two
-    backward-stable solves of one system differ by up to its condition
-    number times their backward error: the swing-up's first Newton
-    system has backward errors near 1.7e-10 in both and solutions that
-    differ by 3e-8, K1 from the plain version as the plain version from
-    the library.) The kernels line takes the result under a key naming
-    its shape, with ``launches`` (that lane's solve's counts)."""
+    spread: for the solutions, against the library LU solve of the same
+    system; for the factors, against the plain factor of inputs rounded
+    another way (``_factor_spread``); and K1's backward error is at most
+    ten times the plain version's. (Two backward-stable solves of one
+    system differ by up to its condition number times their backward
+    error: the swing-up's first Newton system has backward errors near
+    1.7e-10 in both and solutions that differ by 3e-8, K1 from the plain
+    version as the plain version from the library.) The kernels line
+    takes the result under a key naming its shape, with ``launches``
+    (that lane's solve's counts)."""
     blocks = _capture_first_newton_blocks(torch, tr, opts,
                                           tr.initial_guess(), Z0)
     D, _, _, C = blocks
     big = D.shape[1] * D.shape[2] + C.shape[-1] > LARGE_KKT_DIM
     res = _check_btb(torch, *blocks, (1,), 1, 20 if big else 200)
+    res["plain_factor_spread"] = _factor_spread(torch, *blocks)
     sh = res["shape"]
     key = f"B{sh['B']}_N{sh['N']}_nb{sh['nb']}_k{sh['k']}"
     res["launches"] = dict(launches)
     print(f"{label} K1 vs plain, Newton blocks {key}: " + json.dumps(res),
           flush=True)
     spread = max(KERNEL_RTOL, 10 * res["plain_vs_library_lane_rel_err"])
-    if not res["finite"] or res["factor_max_lane_rel_err"] > spread \
+    f_spread = max(spread, 10 * res["plain_factor_spread"])
+    if not res["finite"] or res["factor_max_lane_rel_err"] > f_spread \
             or res["max_lane_rel_err"] > spread or \
             res["backward_err_kernel"] > 10 * res["backward_err_plain"] + \
             1e-14:
@@ -668,7 +706,7 @@ def main():
     ap.add_argument("--out", help="also write the phase results to this "
                     "JSON file")
     ap.add_argument("--phases",
-                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -680,9 +718,9 @@ def main():
         _fail("torch.cuda.is_available() is False: this check needs a CUDA "
               "card and has no CPU fallback")
     from opensim_moco_tpu_torch.examples import (
-        coupler_pendulum_study, double_pendulum_swingup_study,
-        hanging_muscle_inverse, hanging_muscle_study, kirk_min_effort_study,
-        oscillator_mass_study)
+        contact_leg_study, coupler_pendulum_study,
+        double_pendulum_swingup_study, hanging_muscle_inverse,
+        hanging_muscle_study, kirk_min_effort_study, oscillator_mass_study)
     from opensim_moco_tpu_torch.ops import _build
     from opensim_moco_tpu_torch.ops.btb import LAUNCHES
     from opensim_moco_tpu_torch.parallel import batch_guesses
@@ -1110,7 +1148,42 @@ def main():
                 or not all(par16["exact"].values()):
             _fail("phase 16: card and CPU iterates disagree")
 
-    # the K1 checks of phases 10, 13, 15 and 16 join the kernels line by
+    # ---- phases 17 and 18: the contact leg through K1
+    if phases & {17, 18}:
+        tr17 = contact_leg_study(50).transcription()
+        z17 = tr17.initial_guess()
+        Z17 = batch_guesses(tr17, 32, scale=0.05, seed=0)
+        # the bench's options with objective-only curvature, as the JAX
+        # bench's gait2d lane (bench.py:106-110): from the jittered
+        # bounds-midpoint starts the exact Hessian's contact curvature
+        # drives the regularization up until steps stall
+        opts17 = IPMOptions(max_iter=200, kkt="structured",
+                            hessian_approximation="objective-only", **bench)
+    if 17 in phases:
+        phase_start[17] = time.perf_counter()
+        res17, stats17 = _solve_lane(torch, tr17, opts17, z17, Z17, dev,
+                                     LAUNCHES)
+        stats17.update(_kkt_shape(tr17))
+        print("phase 17 contact leg, kkt=structured (mesh 50, B=32, f64, "
+              "cuda; nb is the padded block width, nb_inner the widest "
+              "block but the last): " + json.dumps(stats17), flush=True)
+        out["contact_leg_structured"] = stats17
+        _check_lanes("phase 17", stats17)
+        key, chk = _newton_k1(torch, "phase 17 contact leg", tr17, opts17,
+                              Z17, stats17["launches"])
+        newton[key] = chk
+    if 18 in phases:
+        phase_start[18] = time.perf_counter()
+        par18 = _iterate_parity(torch, tr17, opts17, z17, Z17[:4], COUNTERS,
+                                stepwise=True)
+        print("phase 18 iterate parity cuda vs cpu, contact leg lanes 0-3, "
+              "3 steps, kkt=structured: " + json.dumps(par18), flush=True)
+        out["iterate_parity_contact_leg"] = par18
+        if max(par18["stepwise_max_lane_rel_err"].values()) > ITERATE_RTOL \
+                or not all(par18["exact"].values()):
+            _fail("phase 18: card and CPU iterates disagree")
+
+    # the K1 checks of phases 10, 13, 15, 16 and 17 join the kernels line by
     # shape
     for key, chk in newton.items():
         if not kernels:  # phase 8 not run: these shapes lead

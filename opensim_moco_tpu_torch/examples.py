@@ -3,8 +3,9 @@
 Counterparts of ``opensim_moco_tpu.examples`` builders, with the same
 signatures and the same problems, plus two problems of the JAX package's
 tests (the coupler-constrained double pendulum of ``test_constraints.py``
-and the oscillator mass of ``test_parameters.py``); each returns a
-ready-to-solve :class:`~opensim_moco_tpu_torch.ocp.study.Study`, but
+and the oscillator mass of ``test_parameters.py``) and the planar contact
+leg of ``tests/contact_leg.py``; each returns a ready-to-solve
+:class:`~opensim_moco_tpu_torch.ocp.study.Study`, but
 ``hanging_muscle_inverse``, which returns an ``Inverse`` tool.
 """
 
@@ -298,3 +299,35 @@ def coupler_pendulum_study(num_mesh_intervals=15,
         enforce_constraint_derivatives=enforce_constraint_derivatives)
     study.set_ipm_options(tol=1e-6, max_iter=500)
     return study
+
+
+def _contact_leg_module():
+    """``tests/contact_leg.py`` of this checkout: the leg's data and its
+    builders, shared with the JAX package's tests (it imports neither
+    package)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tests", "contact_leg.py")
+    spec = importlib.util.spec_from_file_location("contact_leg", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def contact_leg_study(num_mesh_intervals=50):
+    """A planar one-legged stance on two contact spheres tracking one squat
+    cycle in 1 s (``tests/contact_leg.py``: a pelvis on a three-coordinate
+    custom joint, a revolute hip, a spline-coupled custom knee, a revolute
+    ankle, four DGF muscles with activation dynamics, residuals and
+    reserves): coordinate tracking, effort with heavy residual weights,
+    periodicity of every state but ``pelvis_tx/value`` as endpoint
+    constraints, and sagittal GRF tracking; Hermite-Simpson at
+    ``num_mesh_intervals`` (gait2d's 50 by default)."""
+    from . import ocp
+    from .utils.splines import CubicSpline
+
+    leg = _contact_leg_module()
+    model = leg.build_leg(MechModelBuilder, Model, CubicSpline, dgf)
+    return leg.build_study(ocp, model, num_mesh_intervals)

@@ -1,4 +1,5 @@
-"""Model composition: mechanics + coordinate actuators + DGF muscles.
+"""Model composition: mechanics + coordinate actuators + DGF muscles +
+contact.
 
 Counterpart of ``opensim_moco_tpu.models.model`` for the components the
 port carries today. State layout (system order) ``y = [q, u, z]`` with the
@@ -6,15 +7,18 @@ auxiliary states ordered per muscle as [activation?, normalized tendon
 force?]; one control per coordinate actuator, then one excitation per
 muscle.
 
-Generalized forces from muscle paths come from ``torch.func.jvp`` /
-``torch.func.vjp`` of the path lengths (Jacobian-transpose mapping), as in
-the JAX package. Every per-muscle selection is static (Python indices), so
-no index tensor is built per call and no unused branch is evaluated.
+Muscle tensions and contact forces act at points fixed in bodies; their
+generalized forces are the points' Jacobian transpose times the forces,
+taken by the backward pass of RNEA from one pass over the tree (the JAX
+package takes it from ``jax.vjp`` of the points). Every per-muscle
+selection is static (Python indices), so no index tensor is built per
+call and no unused branch is evaluated.
 
-Springs/dampers on coordinates, kinematic constraints (with their
-Lagrange multipliers) and prescribed motion (the MocoInverse structure:
-``y = z`` only, the multibody dynamics a force balance) are ported.
-Contacts, external loads, custom control forces, wrapping and
+Springs/dampers on coordinates, station contact (three force laws) and
+smooth sphere contact against the ground plane, kinematic constraints
+(with their Lagrange multipliers) and prescribed motion (the MocoInverse
+structure: ``y = z`` only, the multibody dynamics a force balance) are
+ported. External loads, custom control forces, wrapping and
 conditional/moving path points are not ported yet: adding one raises
 ``NotImplementedError`` (ROADMAP.md, queue 1).
 """
@@ -53,6 +57,12 @@ def _norm(v):
     return torch.sqrt((v * v).sum(-1))
 
 
+def _loc(location, like):
+    """A body-local point as a tensor: a static triple or a tensor."""
+    return (location if torch.is_tensor(location)
+            else _const_vec(location, like))
+
+
 @dataclasses.dataclass(frozen=True)
 class CoordinateActuatorSpec:
     """tau = optimal_force * control at one coordinate (OpenSim
@@ -89,6 +99,149 @@ class MuscleSpec:
     max_control: float = 1.0
 
 
+@dataclasses.dataclass(frozen=True)
+class SphereContactSpec:
+    """SmoothSphereHalfSpaceForce against the ground plane y = 0 (JAX
+    ``models/model.py:92``; the smooth Hertz, Hunt-Crossley and friction
+    model of Serrancoli et al. 2019, parameter names as in the reference
+    XML)."""
+    name: str
+    body: int
+    location: tuple  # sphere center in body frame
+    radius: float
+    stiffness: float = 1e6
+    dissipation: float = 2.0
+    static_friction: float = 0.8
+    dynamic_friction: float = 0.8
+    viscous_friction: float = 0.5
+    transition_velocity: float = 0.2
+    constant_contact_force: float = 1e-5
+    hertz_smoothing: float = 300.0
+    hunt_crossley_smoothing: float = 50.0
+    derivative_smoothing: float = 1e-5
+
+
+def smooth_sphere_halfspace_force(cp_pos, cp_vel, spec: SphereContactSpec):
+    """World force (..., 3) on the body at the sphere's lowest point
+    against the plane y = 0, from that point's position and velocity
+    (..., 3) (JAX ``models/model.py:113``)."""
+    cd = spec.derivative_smoothing
+    indentation = -cp_pos[..., 1]
+    indentation_vel = -cp_vel[..., 1]
+    delta_s = torch.sqrt(indentation ** 2 + cd)
+    fH = (4.0 / 3.0) * spec.stiffness * np.sqrt(spec.radius) * \
+        delta_s ** 1.5
+    fH = fH * 0.5 * (1.0 + torch.tanh(spec.hertz_smoothing * indentation))
+    damp = 1.0 + 1.5 * spec.dissipation * indentation_vel
+    fHC = fH * damp
+    fn = fHC * 0.5 * (1.0 + torch.tanh(spec.hunt_crossley_smoothing * damp)) \
+        + spec.constant_contact_force
+    # friction in the plane
+    vt = torch.sqrt(cp_vel[..., 0] ** 2 + cp_vel[..., 2] ** 2 + cd)
+    vrel = vt / spec.transition_velocity
+    mu = spec.dynamic_friction * torch.tanh(vrel) + \
+        spec.viscous_friction * vt
+    ft = -mu * fn / vt
+    return torch.stack([ft * cp_vel[..., 0], fn, ft * cp_vel[..., 2]], -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class StationContactSpec:
+    """Smooth station-against-ground-plane contact (JAX
+    ``models/model.py:140``; reference StationPlaneContactForce.h).
+    ``model`` selects the force law: "ackermann"
+    (AckermannVanDenBogert2010, cubic spring; the default), "meyer"
+    (MeyerFregly2016, log-cosh spring; uses ``tscale``) or "esposito"
+    (EspositoMiller2018, smoothed quadratic; uses ``depth_offset``)."""
+    name: str
+    body: int
+    location: tuple
+    stiffness: float = 5e7
+    dissipation: float = 1.0
+    friction_coefficient: float = 1.0
+    tangent_velocity_scaling: float = 0.05
+    model: str = "ackermann"
+    tscale: float = 1.0
+    depth_offset: float = 0.001
+
+
+def _planar_force(fx, fy):
+    return torch.stack([fx, fy, torch.zeros_like(fx)], -1)
+
+
+def avdb_contact_force(pos, vel, stiffness, dissipation, friction_coefficient,
+                       tangent_velocity_scaling):
+    """AckermannVanDenBogert2010 smooth contact, world force (..., 3) at the
+    station: a cubic normal force with dissipation, a small void stiffness
+    and a tanh friction transition (JAX ``models/model.py:160``)."""
+    depth = -pos[..., 1]
+    depth_rate = -vel[..., 1]
+    fy = torch.clamp(stiffness * depth ** 3 * (1 + dissipation * depth_rate),
+                     min=0.0)
+    fy = torch.where(depth > 0, fy, torch.zeros_like(fy))
+    void_stiffness = 1.0
+    fy = fy + void_stiffness * depth
+    transition = torch.tanh(vel[..., 0] / tangent_velocity_scaling / 2.0)
+    return _planar_force(-transition * friction_coefficient * fy, fy)
+
+
+def meyer_fregly_contact_force(pos, vel, stiffness, dissipation, tscale):
+    """MeyerFregly2016 smooth contact: a log-cosh spring blending a small
+    out-of-contact stiffness into the in-contact one, times a Hunt-Crossley
+    dissipation factor; tanh friction with mu_d = 1, latch velocity
+    0.05 m/s (JAX ``models/model.py:180``)."""
+    y = pos[..., 1]
+    depth_rate = -vel[..., 1]
+    klow = 1e-1 / (tscale * tscale)
+    h = 1e-3
+    c = 5e-4
+    ymax = 1e-2
+    vp = (stiffness + klow) / (stiffness - klow)
+    sp = (stiffness - klow) / 2.0
+    # log(cosh(x)) overflows for |x| above about 350: |x| - log 2 there
+    xo = (y + h) / c
+    log_cosh = torch.where(xo.abs() > 30.0, xo.abs() - np.log(2.0),
+                           torch.log(torch.cosh(torch.clamp(xo, -30.0,
+                                                            30.0))))
+    constant = -sp * (vp * ymax - c * np.log(np.cosh((ymax + h) / c)))
+    f_spring = -sp * (vp * y - c * log_cosh) - constant
+    fy = f_spring * (1.0 + dissipation * depth_rate)
+    mu = torch.tanh(vel[..., 0] / 0.05 / 2.0)
+    return _planar_force(-fy * mu, fy)
+
+
+def esposito_miller_contact_force(pos, vel, stiffness, dissipation,
+                                  friction_coefficient,
+                                  tangent_velocity_scaling, depth_offset):
+    """EspositoMiller2018 smooth contact: (sqrt(depth^2 + offset^2) +
+    depth) / 2 gates a quadratic spring smoothly; Hunt-Crossley
+    dissipation; tanh friction (JAX ``models/model.py:205``)."""
+    depth = -pos[..., 1]
+    depth_rate = -vel[..., 1]
+    dy = 0.5 * (torch.sqrt(depth ** 2 + depth_offset ** 2) + depth)
+    void_stiffness = 1.0
+    fy = stiffness * dy ** 2 * (1.0 + dissipation * depth_rate) + \
+        void_stiffness * depth
+    transition = torch.tanh(vel[..., 0] / tangent_velocity_scaling)
+    return _planar_force(-transition * friction_coefficient * fy, fy)
+
+
+def station_contact_force(pos, vel, spec: StationContactSpec, stiffness,
+                          dissipation, friction_coefficient):
+    """The force law of a StationContactSpec, chosen by its static
+    ``model`` (JAX ``models/model.py:222``)."""
+    if spec.model == "meyer":
+        return meyer_fregly_contact_force(pos, vel, stiffness, dissipation,
+                                          spec.tscale)
+    if spec.model == "esposito":
+        return esposito_miller_contact_force(
+            pos, vel, stiffness, dissipation, friction_coefficient,
+            spec.tangent_velocity_scaling, spec.depth_offset)
+    return avdb_contact_force(pos, vel, stiffness, dissipation,
+                              friction_coefficient,
+                              spec.tangent_velocity_scaling)
+
+
 class Model:
     """Mutable builder; call :meth:`finalize` before use in a Problem."""
 
@@ -100,6 +253,8 @@ class Model:
         self.couplers: list = []  # (dependent, independent, fn)
         self.muscles: list[MuscleSpec] = []
         self._muscle_params: list[dict] = []
+        self.contacts: list[StationContactSpec] = []
+        self.sphere_contacts: list[SphereContactSpec] = []
         self.position_motion = None
         self.prescribed = False
         self._finalized = False
@@ -147,11 +302,17 @@ class Model:
         self.springs.append(SpringGeneralizedForceSpec(
             name, ci, float(stiffness), float(rest_length), float(viscosity)))
 
-    def add_station_contact(self, *args, **kwargs):
-        _unported("station contact")
+    def add_station_contact(self, name, body, location, **kwargs):
+        """JAX ``models/model.py:331``; ``kwargs`` are
+        :class:`StationContactSpec` fields."""
+        self.contacts.append(StationContactSpec(name, body, tuple(location),
+                                                **kwargs))
 
-    def add_sphere_contact(self, *args, **kwargs):
-        _unported("sphere contact")
+    def add_sphere_contact(self, name, body, location, radius, **kwargs):
+        """JAX ``models/model.py:335``; ``kwargs`` are
+        :class:`SphereContactSpec` fields."""
+        self.sphere_contacts.append(SphereContactSpec(
+            name, body, tuple(location), float(radius), **kwargs))
 
     def add_external_force(self, *args, **kwargs):
         _unported("external loads")
@@ -362,9 +523,16 @@ class Model:
                 for i in range(k)]
 
     def coordinate_paths(self):
-        """Moco-style absolute paths per coordinate, in coordinate order."""
-        return [f"/jointset/{j.label or j.name}/{j.coord_name}"
-                for j in self.mech.joints if j.kind != "weld"]
+        """Moco-style absolute paths per coordinate, in coordinate order (a
+        custom joint gives one path per coordinate)."""
+        paths = []
+        for j in self.mech.joints:
+            if j.kind == "weld":
+                continue
+            base = f"/jointset/{j.label or j.name}"
+            names = j.coord_names if j.kind == "custom" else (j.coord_name,)
+            paths.extend(f"{base}/{cn}" for cn in names)
+        return paths
 
     def state_names(self):
         aux = [f"/forceset/{m}/{kind}" for m, kind in self._aux_index]
@@ -420,6 +588,11 @@ class Model:
             p["spring"] = {
                 key: np.asarray([getattr(s, key) for s in self.springs])
                 for key in ("stiffness", "rest_length", "viscosity")}
+        if self.contacts:  # JAX models/model.py:659-665
+            p["contact"] = {
+                key: np.asarray([getattr(c, key) for c in self.contacts])
+                for key in ("stiffness", "dissipation",
+                            "friction_coefficient")}
         return p
 
     def default_params(self, device="cuda", dtype=torch.float64) -> dict:
@@ -454,7 +627,10 @@ class Model:
     # ------------------------------------------------------------- forces
     def path_lengths(self, p, q):
         """(..., n_muscles) lengths of the straight-segment paths."""
-        frames = self.mech.frames(p["mech"], q)
+        return self._path_lengths_from_frames(self.mech.frames(p["mech"], q),
+                                              q)
+
+    def _path_lengths_from_frames(self, frames, q):
         out = []
         for ms in self.muscles:
             pts = [self.mech._station_world(frames, body, loc, q)
@@ -466,9 +642,38 @@ class Model:
         return torch.stack(torch.broadcast_tensors(*out), -1)
 
     def muscle_path_kinematics(self, p, q, u):
-        """lMT, vMT (..., nm) via jvp through the forward kinematics."""
-        return torch.func.jvp(lambda qq: self.path_lengths(p, qq), (q,),
-                              (u,))
+        """lMT, vMT (..., nm): the path lengths and their rates (the JAX
+        package's ``jvp`` of the lengths, here from the bodies'
+        velocities)."""
+        L, Ldot, _ = self._path_kinematics(
+            self.mech.kinematics(p["mech"], q, u, subspace=False), q)
+        return L, Ldot
+
+    def _path_kinematics(self, kin, q):
+        """(lMT, vMT, segments): the lengths and their rates (..., nm), and
+        per muscle its straight segments as (body_a, local point a, body_b,
+        local point b, unit vector from a to b (..., 3))."""
+        frames = [(b.A, b.o) for b in kin]
+        vels = [b.v for b in kin]
+        Ls, Ldots, segments = [], [], []
+        for ms in self.muscles:
+            locs = [(body, _const_vec(loc, q)) for _, body, loc in ms.path]
+            pts = [self.mech._station_world_velocity(frames, vels, body, loc,
+                                                     q)
+                   for body, loc in locs]
+            L = Ldot = q.new_zeros(())
+            segs = []
+            for k, ((pa, va), (pb, vb)) in enumerate(zip(pts[:-1], pts[1:])):
+                d = pb - pa + 1e-30
+                n = _norm(d)
+                L = L + n
+                Ldot = Ldot + (d * (vb - va)).sum(-1) / n
+                segs.append(locs[k] + locs[k + 1] + (d / n.unsqueeze(-1),))
+            Ls.append(L)
+            Ldots.append(Ldot)
+            segments.append(segs)
+        return (torch.stack(torch.broadcast_tensors(*Ls), -1),
+                torch.stack(torch.broadcast_tensors(*Ldots), -1), segments)
 
     def _muscle_vec_state(self, z, x):
         """(excitation, activation, norm_tendon_force) (..., nm); the tendon
@@ -526,25 +731,103 @@ class Model:
 
     def applied_generalized_forces(self, p, t, q, u, z, x,
                                    include_muscles=True,
-                                   include_controls=True):
+                                   include_controls=True, kin=None):
         """Total applied generalized force f_app(t, y, x, p): actuators,
-        springs, and muscle tensions mapped through the path-length
-        Jacobian. ``include_muscles=False`` / ``include_controls=False``
-        drop those terms, leaving the part that the time alone fixes on a
-        prescribed-kinematics problem (JAX ``models/model.py:858``)."""
+        springs, and the muscle tensions and contact forces mapped to
+        generalized forces by the Jacobian transpose of their points (JAX
+        ``models/model.py:858``, which takes that product from one ``vjp``
+        of the points and the rates from one ``jvp``; here both come from
+        one pass over the tree, ``kin`` = ``mech.kinematics(q, u)``, made
+        here if absent). ``include_muscles=False`` /
+        ``include_controls=False`` drop those terms, leaving the part that
+        the time alone fixes on a prescribed-kinematics problem; contact
+        stays."""
         tau = (self.tau_controls(p, x) if include_controls
                else torch.zeros_like(q))
         if self.springs:
             tau = tau + self.spring_forces(p, q, u)
-        if not (self.muscles and include_muscles):
+        nm = len(self.muscles) if include_muscles else 0
+        if not (nm or self.sphere_contacts or self.contacts):
             return tau
-        path = lambda qq: self.path_lengths(p, qq)  # noqa: E731
-        L, Ldot = torch.func.jvp(path, (q,), (u,))
-        _, pullback = torch.func.vjp(path, q)
-        exc, act, ft = self._muscle_vec_state(z, x)
-        F_m = self._muscle_forces_vec(p, act, ft, L, Ldot)
-        # tension shortens the path
-        return tau + pullback(-F_m)[0]
+        if kin is None:
+            kin = self.mech.kinematics(p["mech"], q, u)
+        forces = []
+        if nm:
+            L, Ldot, segments = self._path_kinematics(kin, q)
+            exc, act, ft = self._muscle_vec_state(z, x)
+            F_m = self._muscle_forces_vec(p, act, ft, L, Ldot)
+            # the tension pulls each segment's ends towards each other
+            for m, segs in enumerate(segments):
+                T = F_m[..., m, None]
+                for body_a, loc_a, body_b, loc_b, e in segs:
+                    forces.append((body_a, loc_a, T * e))
+                    forces.append((body_b, loc_b, -T * e))
+        points = self._contact_points(kin, q)
+        if points:
+            frames = [(b.A, b.o) for b in kin]
+            P, Pdot = self._point_kinematics(frames, [b.v for b in kin],
+                                             points, q)
+            F = self._contact_force_stack(p, P, Pdot)
+            forces += [(body, _loc(loc, q), F[..., k, :])
+                       for k, (body, loc) in enumerate(points)]
+        return tau + self.mech.point_forces_to_generalized(kin, q, forces)
+
+    # -------------------------------------------------------------- contact
+    def _contact_points(self, kin, q):
+        """(body, body-local point) per contact, spheres first. A sphere's
+        point is the body-local point that coincides with its lowest point
+        at the pose of ``kin``, frozen: no derivative flows through that
+        choice under any transform (``jax.lax.stop_gradient`` in the JAX
+        package, ``models/model.py:898-907``)."""
+        points = []
+        for spec in self.sphere_contacts:
+            A, o = kin[spec.body].A, kin[spec.body].o
+            center_w = o + mv(A.transpose(-1, -2),
+                              _const_vec(spec.location, q))
+            cp_w = center_w - _const_vec((0.0, spec.radius, 0.0), q)
+            points.append((spec.body, mv(A, cp_w - o).detach()))
+        return points + [(c.body, c.location) for c in self.contacts]
+
+    def _point_kinematics(self, frames, vels, points, q):
+        """World positions and velocities (..., n, 3) of (body, local point)
+        pairs."""
+        pv = [self.mech._station_world_velocity(frames, vels, body, loc, q)
+              for body, loc in points]
+        P = torch.stack(torch.broadcast_tensors(*[a for a, _ in pv]), -2)
+        V = torch.stack(torch.broadcast_tensors(*[b for _, b in pv]), -2)
+        return P, V
+
+    def _contact_force_stack(self, p, P, Pdot):
+        """World forces (..., n_contacts, 3) from the contact points'
+        positions and velocities (..., n_contacts, 3)."""
+        ns = len(self.sphere_contacts)
+        forces = [smooth_sphere_halfspace_force(P[..., k, :],
+                                                Pdot[..., k, :], spec)
+                  for k, spec in enumerate(self.sphere_contacts)]
+        cp = p.get("contact")
+        for j, c in enumerate(self.contacts):
+            forces.append(station_contact_force(
+                P[..., ns + j, :], Pdot[..., ns + j, :], c,
+                cp["stiffness"][j], cp["dissipation"][j],
+                cp["friction_coefficient"][j]))
+        return torch.stack(forces, -2)
+
+    def contact_names(self):
+        return ([s.name for s in self.sphere_contacts] +
+                [c.name for c in self.contacts])
+
+    def contact_forces(self, p, t, q, u):
+        """World-frame force (..., 3) on the body of each contact component,
+        keyed by its name (JAX ``models/model.py:977``)."""
+        if not (self.sphere_contacts or self.contacts):
+            return {}
+        kin = self.mech.kinematics(p["mech"], q, u, subspace=False)
+        P, Pdot = self._point_kinematics(
+            [(b.A, b.o) for b in kin], [b.v for b in kin],
+            self._contact_points(kin, q), q)
+        F = self._contact_force_stack(p, P, Pdot)
+        return {name: F[..., k, :]
+                for k, name in enumerate(self.contact_names())}
 
     # ---------------------------------------------------- kinematic cons
     def phi(self, p, q):
@@ -576,21 +859,22 @@ class Model:
     def multibody_explicit(self, p, t, q, u, z, x, lam=None):
         """udot = M^{-1} (f_app - bias - G^T lam) (JAX
         ``models/model.py:1110``)."""
-        tau = self.applied_generalized_forces(p, t, q, u, z, x)
-        if self.nphi:
-            tau = tau - self.constraint_jacobian_T(p, q, lam)
-        M = self.mech.mass_matrix(p["mech"], q)
-        b = self.mech.bias_forces(p["mech"], q, u)
+        tau, M, b = self._multibody_terms(p, t, q, u, z, x, lam)
         return spd_solve(M, tau - b)
 
     def multibody_implicit_residual(self, p, t, q, u, z, x, lam, udot):
         """M udot + G^T lam - (f_app - bias) (N m)."""
-        tau = self.applied_generalized_forces(p, t, q, u, z, x)
+        tau, M, b = self._multibody_terms(p, t, q, u, z, x, lam)
+        return mv(M, udot) - (tau - b)
+
+    def _multibody_terms(self, p, t, q, u, z, x, lam):
+        """(f_app - G^T lam, M, bias) from one pass over the tree."""
+        kin = self.mech.kinematics(p["mech"], q, u, rates=True)
+        tau = self.applied_generalized_forces(p, t, q, u, z, x, kin=kin)
         if self.nphi:
             tau = tau - self.constraint_jacobian_T(p, q, lam)
-        M = self.mech.mass_matrix(p["mech"], q)
-        b = self.mech.bias_forces(p["mech"], q, u)
-        return mv(M, udot) - (tau - b)
+        return (tau, self.mech.mass_matrix(p["mech"], q, kin),
+                self.mech.bias_forces(p["mech"], q, u, kin))
 
     # ------------------------------------------ prescribed-kinematics cache
     def prescribed_point_constants(self, p, t):

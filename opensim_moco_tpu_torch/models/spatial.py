@@ -41,20 +41,35 @@ def rodrigues(axis, theta):
     """Active rotation R(axis, theta) for a static unit ``axis`` (3
     numbers) and a tensor angle ``theta`` of shape (...): (..., 3, 3).
 
-    Same formula as the JAX package, ``I + sin K + (1 - cos) K K``, with
-    K built from the static axis on the host."""
+    The JAX package's ``I + sin K + (1 - cos) K K``, with K built from the
+    static axis on the host, written as (I + K K) + sin K - cos K K: for an
+    axis along a coordinate every entry is 0, 1 or +-sin or cos, with no
+    operation between a constant and the angle (which forward-mode
+    derivatives make costly)."""
     a = np.asarray(axis, dtype=np.float64)
     K = np.array([[0.0, -a[2], a[1]], [a[2], 0.0, -a[0]],
                   [-a[1], a[0], 0.0]])
     K2 = K @ K
+    base = np.eye(3) + K2
     s = torch.sin(theta)
-    omc = 1.0 - torch.cos(theta)
+    c = torch.cos(theta)
+
+    def scaled(x, k):
+        return x if k == 1.0 else (-x if k == -1.0 else x * float(k))
+
     rows = []
     for i in range(3):
         row = []
         for j in range(3):
-            row.append((1.0 if i == j else 0.0) + s * float(K[i, j]) +
-                       omc * float(K2[i, j]))
+            e = None
+            for x, k in ((s, K[i, j]), (c, -K2[i, j])):
+                if k != 0.0:
+                    e = scaled(x, k) if e is None else e + scaled(x, k)
+            if e is None:
+                e = torch.full_like(s, float(base[i, j]))
+            elif base[i, j] != 0.0:
+                e = e + float(base[i, j])
+            row.append(e)
         rows.append(torch.stack(row, -1))
     return torch.stack(rows, -2)
 
@@ -67,6 +82,11 @@ def xform(E, r):
 def xform_inv_T(E, r):
     """Force transform (X^{-T}) for (E, r): ``[[E, -E r^], [0, E]]``."""
     return block2x2(E, -E @ skew(r), torch.zeros_like(E), E)
+
+
+def cross(a, b):
+    """a x b over the last dim, the leading dims broadcast."""
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b))
 
 
 def crm(v):

@@ -1,6 +1,8 @@
-from .goals import (ControlGoal, CustomGoal, FinalTimeGoal, Goal,
-                    InitialActivationGoal, InitialForceEquilibriumGoal,
-                    InitialVelocityEquilibriumDGFGoal, SumSquaredStateGoal)
+from .goals import (ContactTrackingGoal, ControlGoal, CustomGoal,
+                    FinalTimeGoal, Goal, InitialActivationGoal,
+                    InitialForceEquilibriumGoal,
+                    InitialVelocityEquilibriumDGFGoal, PeriodicityGoal,
+                    StateTrackingGoal, SumSquaredStateGoal)
 from .problem import (ParameterSpec, PathConstraintSpec, Problem,
                       ProblemRep, VariableInfo)
 from .study import Solution, Study
@@ -8,7 +10,8 @@ from .study import Solution, Study
 __all__ = [
     "Goal", "ControlGoal", "CustomGoal", "FinalTimeGoal", "InitialActivationGoal",
     "InitialForceEquilibriumGoal", "InitialVelocityEquilibriumDGFGoal",
-    "SumSquaredStateGoal",
+    "SumSquaredStateGoal", "StateTrackingGoal", "PeriodicityGoal",
+    "ContactTrackingGoal",
     "ParameterSpec", "PathConstraintSpec", "Problem", "ProblemRep",
     "VariableInfo", "Solution", "Study",
 ]

@@ -7,6 +7,10 @@ combines endpoint tuples ``(t, y, x, lam, deriv)`` (leading dims only)
 with the quadrature of the integrand. A goal is a cost term or, in
 ``"endpoint_constraint"`` mode, a set of constraint rows (``values``).
 
+Reference trajectories (``StateTrackingGoal``, ``ContactTrackingGoal``)
+are interpolated linearly, clamped at the ends (``jnp.interp`` in the
+JAX package), from tables moved to the device once per (device, dtype).
+
 The remaining goals of the JAX package are not ported yet (ROADMAP.md,
 queue 1).
 """
@@ -21,6 +25,43 @@ import numpy as np
 import torch
 
 from ..models import muscle as dgf
+from ..utils.splines import _Coefficients, _rows
+
+
+class _LinearTable:
+    """Linear interpolation of samples ``values`` (K,) or (K, d) at times
+    ``times`` (K,), increasing, with the end values held outside: the
+    function of ``jnp.interp`` (a repeated time is a step), on a time
+    tensor of any leading shape."""
+
+    def __init__(self, times, values):
+        x = np.asarray(times, dtype=np.float64)
+        y = np.asarray(values, dtype=np.float64)
+        dx = np.diff(x).reshape((-1,) + (1,) * (y.ndim - 1))
+        flat = np.abs(dx) <= np.spacing(np.finfo(np.float64).eps)
+        slope = np.diff(y, axis=0) / np.where(flat, 1.0, dx)
+        self._c = _Coefficients(x=x, y=y,
+                                slope=np.where(flat, 0.0, slope))
+
+    def __call__(self, t):
+        c = self._c.on(t)
+        x, y = c["x"], c["y"]
+        i = torch.clamp(torch.searchsorted(x, t.contiguous(), right=True), 1,
+                        len(x) - 1) - 1
+        dt = t - _rows(x, i)
+        if y.dim() > 1:
+            dt, t = dt.unsqueeze(-1), t.unsqueeze(-1)
+        f = _rows(y, i) + dt * _rows(c["slope"], i)
+        f = torch.where(t < x[0], y[0], f)
+        return torch.where(t > x[-1], y[-1], f)
+
+
+def _tables(goal, reference):
+    """The goal's reference tables, built on first use."""
+    if goal._tables is None:
+        goal._tables = {key: _LinearTable(*ref)
+                        for key, ref in reference.items()}
+    return goal._tables
 
 
 @dataclasses.dataclass
@@ -132,6 +173,33 @@ class InitialActivationGoal(Goal):
 
 
 @dataclasses.dataclass
+class StateTrackingGoal(Goal):
+    """Weighted squared tracking of reference state trajectories
+    (MocoStateTrackingGoal; JAX ``ocp/goals.py:140``). ``reference`` maps a
+    state name to (times (K,), values (K,)), interpolated linearly. Its
+    integrand is per grid point (the default ``hessian_block_local``)."""
+    name: str = "state_tracking"
+    reference: dict = dataclasses.field(default_factory=dict)
+    state_weights: dict = dataclasses.field(default_factory=dict)
+    scale_by_range: bool = False
+    _tables: dict | None = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        tables = _tables(self, self.reference)
+        total = torch.zeros_like(t)
+        for name, (times, values) in self.reference.items():
+            i = rep.state_names.index(name)
+            w = self.state_weights.get(name, 1.0)
+            if self.scale_by_range:
+                rng = float(np.max(values) - np.min(values))
+                if rng > 1e-12:
+                    w = w / rng ** 2
+            total = total + w * (y[..., i] - tables[name](t)) ** 2
+        return total
+
+
+@dataclasses.dataclass
 class SumSquaredStateGoal(Goal):
     """Sum of squared state values, with an optional name regex and
     per-state weights (MocoSumSquaredStateGoal; JAX ``ocp/goals.py:165``).
@@ -148,6 +216,98 @@ class SumSquaredStateGoal(Goal):
                 w = self.state_weights.get(sn, 1.0)
                 total = total + w * y[..., i] ** 2
         return total
+
+
+@dataclasses.dataclass
+class PeriodicityGoal(Goal):
+    """Equal (or, with ``negate``, opposite) initial and final values of
+    states and controls (MocoPeriodicityGoal; JAX ``ocp/goals.py:203``).
+    A pair is ``name``, ``(name, negate)`` or
+    ``(name_initial, name_final, negate)``. In its default
+    ``"endpoint_constraint"`` mode each pair is a constraint row, which
+    the structured KKT path puts in the border; as a cost, the sum of the
+    squared pair errors couples the first and last time blocks, so the
+    problem takes the dense KKT path, as in the JAX package."""
+    name: str = "periodicity"
+    mode: str = "endpoint_constraint"
+    state_pairs: tuple = ()
+    control_pairs: tuple = ()
+
+    def __post_init__(self):
+        self.num_outputs = len(self.state_pairs) + len(self.control_pairs)
+
+    @staticmethod
+    def _pair(names, pair):
+        if len(pair) == 2 and isinstance(pair[1], bool):
+            a = b = pair[0]
+            negate = pair[1]
+        elif isinstance(pair, str):
+            a = b = pair
+            negate = False
+        else:
+            a, b, negate = pair
+        return names.index(a), names.index(b), negate
+
+    def values(self, rep, initial, final, p):
+        out = []
+        y0, x0 = initial[1], initial[2]
+        yf, xf = final[1], final[2]
+        for pairs, names, v0, vf in (
+                (self.state_pairs, rep.state_names, y0, yf),
+                (self.control_pairs, rep.control_names, x0, xf)):
+            for pair in pairs:
+                i, j, negate = self._pair(names, pair)
+                out.append(vf[..., j] + v0[..., i] if negate
+                           else vf[..., j] - v0[..., i])
+        if not out:
+            return y0.new_zeros(y0.shape[:-1] + (0,))
+        return torch.stack(out, -1)
+
+    def value(self, rep, initial, final, integral, p):
+        v = self.values(rep, initial, final, p)
+        return (v * v).sum(-1)
+
+
+@dataclasses.dataclass
+class ContactTrackingGoal(Goal):
+    """Track ground reaction forces with groups of contact components
+    (MocoContactTrackingGoal; JAX ``ocp/goals.py:474``). ``groups`` is a
+    tuple of (contact_names, ref_key); ``reference`` maps ref_key to
+    (times (K,), forces (K, 3)) in ground. The squared error is divided by
+    the model's weight (total mass times |g|) and optionally projected
+    (``projection``: "none", "vector" onto ``projection_vector``, or
+    "plane" orthogonal to it). Its integrand is per grid point (the
+    default ``hessian_block_local``)."""
+    name: str = "contact_tracking"
+    groups: tuple = ()
+    reference: dict = dataclasses.field(default_factory=dict)
+    projection: str = "none"
+    projection_vector: tuple = (0.0, 1.0, 0.0)
+    _tables: dict | None = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        m = rep.model
+        q = y[..., :m.nq]
+        u = y[..., m.nq:2 * m.nq]
+        forces = m.contact_forces(p, t, q, u)
+        tables = _tables(self, self.reference)
+        mech = p["mech"]
+        denom = mech["mass"].sum() * torch.sqrt(
+            (mech["gravity"] * mech["gravity"]).sum())
+        v = np.asarray(self.projection_vector, dtype=np.float64)
+        v = v / np.linalg.norm(v)
+        total = torch.zeros_like(t)
+        for names, ref_key in self.groups:
+            f_model = sum(forces[n] for n in names)
+            err = f_model - tables[ref_key](t)
+            if self.projection in ("vector", "plane"):
+                along = sum(float(vk) * err[..., k] for k, vk in enumerate(v)
+                            if vk != 0.0)
+                proj = torch.stack([along * float(vk) for vk in v], -1)
+                err = proj if self.projection == "vector" else err - proj
+            total = total + (err * err).sum(-1)
+        return total / denom
 
 
 class _InitialMuscleEquilibrium(Goal):

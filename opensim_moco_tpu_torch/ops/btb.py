@@ -38,11 +38,17 @@ MAX_NB = 738
 # and device-memory modes (nb 109-112 for k = 4..0; 115, 116 and 200 in
 # device memory), N = 1 (no L block), a border of 0 and of 2 (a parameter
 # and an endpoint-constraint row); nb 64/65 also crosses the solve's choice
-# between its narrow and its wide kernel
+# between its narrow and its wide kernel. Then the wide borders of
+# periodicity rows: k = 16, 20 and 24 across their memory-mode bound (nb
+# 107 for k = 16, 105 for k = 20 and 24; k = 24 is also where MAX_NB
+# starts to shrink), and the contact leg's own shape (``examples.
+# contact_leg_study``: N = 50, nb = 120, k = 15)
 EDGE_NBS = (1, 5, 31, 32, 33, 34, 63, 64, 65, 109, 110, 111, 112, 115, 116,
             200)
-EDGE_SHAPES = [(N, nb, k) for N in (1, 2, 16) for nb in EDGE_NBS
-               for k in (0, 1, 2, 4)]
+EDGE_SHAPES = ([(N, nb, k) for N in (1, 2, 16) for nb in EDGE_NBS
+                for k in (0, 1, 2, 4)] +
+               [(N, nb, k) for N in (1, 2) for nb in (104, 105, 106, 107, 108)
+                for k in (16, 20, 24)] + [(50, 120, 15)])
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

@@ -28,9 +28,13 @@ class _Coefficients:
     def on(self, like):
         key = (like.device, like.dtype)
         if key not in self._cache:
-            self._cache[key] = {
-                k: torch.as_tensor(v, dtype=like.dtype, device=like.device)
-                for k, v in self._np.items()}
+            # made outside any torch.func transform the first call may sit
+            # in, so that the cached tensors belong to no transform level
+            with torch._C._DisableFuncTorch():
+                self._cache[key] = {
+                    k: torch.as_tensor(v, dtype=like.dtype,
+                                       device=like.device)
+                    for k, v in self._np.items()}
         return self._cache[key]
 
 
@@ -39,6 +43,12 @@ def _segment(knots, t, nseg):
     (JAX ``searchsorted(side="right") - 1``)."""
     i = torch.searchsorted(knots, t.contiguous(), right=True) - 1
     return torch.clamp(i, 0, nseg - 1)
+
+
+def _rows(a, i):
+    """``a[i]`` for an index tensor ``i`` of any shape, also a 0-d one
+    under ``vmap`` (where ``a[i]`` would read the index on the host)."""
+    return a.index_select(0, i.reshape(-1)).reshape(i.shape + a.shape[1:])
 
 
 class CubicSpline:
@@ -68,33 +78,37 @@ class CubicSpline:
                               (y[i] - y[i - 1]) / h[i - 1])
             M = np.linalg.solve(A, rhs.reshape(n, -1)).reshape(y.shape)
         self.n = n
-        self._c = _Coefficients(x=x, y=y, M=M)
+        # each segment as a cubic in dt = t - x_i (the same spline as the
+        # JAX package's form in A = (x_{i+1} - t) / h, B = (t - x_i) / h):
+        # few operations with a constant operand, which forward-mode
+        # derivatives make costly
+        h = h.reshape((-1,) + (1,) * (y.ndim - 1))
+        M0, M1 = M[:-1], M[1:]
+        d = (M1 - M0) / (6.0 * h)
+        self._c = _Coefficients(
+            x=x, a=y[:-1],
+            b=(y[1:] - y[:-1]) / h - h * (2.0 * M0 + M1) / 6.0,
+            c=M0 / 2.0, d=d, c2=M0, d3=3.0 * d, d6=6.0 * d)
 
-    def _parts(self, t):
+    def _parts(self, t, *names):
         c = self._c.on(t)
         i = _segment(c["x"], t, self.n - 1)
-        x0, x1 = c["x"][i], c["x"][i + 1]
-        h = x1 - x0
-        A = (x1 - t) / h
-        B = (t - x0) / h
-        if c["y"].dim() > 1:  # per-column values: broadcast over d
-            h, A, B = (v.unsqueeze(-1) for v in (h, A, B))
-        return (h, A, B, c["y"][i], c["y"][i + 1], c["M"][i],
-                c["M"][i + 1])
+        dt = t - _rows(c["x"], i)
+        if c["a"].dim() > 1:  # per-column values: broadcast over d
+            dt = dt.unsqueeze(-1)
+        return (dt,) + tuple(_rows(c[k], i) for k in names)
 
     def __call__(self, t):
-        h, A, B, y0, y1, M0, M1 = self._parts(t)
-        return (A * y0 + B * y1 +
-                ((A ** 3 - A) * M0 + (B ** 3 - B) * M1) * (h * h) / 6.0)
+        dt, a, b, c, d = self._parts(t, "a", "b", "c", "d")
+        return ((d * dt + c) * dt + b) * dt + a
 
     def derivative(self, t):
-        h, A, B, y0, y1, M0, M1 = self._parts(t)
-        return ((y1 - y0) / h +
-                (-(3 * A ** 2 - 1) * M0 + (3 * B ** 2 - 1) * M1) * h / 6.0)
+        dt, b, c2, d3 = self._parts(t, "b", "c2", "d3")
+        return (d3 * dt + c2) * dt + b
 
     def second_derivative(self, t):
-        _, A, B, _, _, M0, M1 = self._parts(t)
-        return A * M0 + B * M1
+        dt, c2, d6 = self._parts(t, "c2", "d6")
+        return d6 * dt + c2
 
 
 def _natural_quintic_coeffs(x, Y):
@@ -197,8 +211,8 @@ class QuinticSpline:
     def _eval(self, t, deriv):
         c = self._c.on(t)
         i = _segment(c["xb"], t, self.nseg)
-        dt = (t - c["xb"][i]).unsqueeze(-1)
-        coef = c[f"d{deriv}"][i]  # (..., order - deriv, d)
+        dt = (t - _rows(c["xb"], i)).unsqueeze(-1)
+        coef = _rows(c[f"d{deriv}"], i)  # (..., order - deriv, d)
         out = coef[..., 0, :]
         for m in range(1, coef.shape[-2]):
             out = out * dt + coef[..., m, :]

@@ -1,8 +1,10 @@
 """Where an iteration of the port's batched IPM spends its time, per KKT mode.
 
-For the bench's full-dynamics hanging-muscle lane (mesh 25, B=32, float64,
-the bench's IPM options) and each ``kkt`` mode ("dense", "auto",
-"structured"), on one CUDA card:
+For one lane, B=32, float64, the bench's IPM options (``--lane hanging``:
+the bench's full-dynamics hanging muscle at mesh 25; ``--lane
+contact_leg``: ``examples.contact_leg_study(50)`` with objective-only
+curvature, as ``chip_smoke.py`` phase 17 solves it) and each ``kkt`` mode
+("dense", "auto", "structured"), on one CUDA card:
 
 * seconds per ``body_fn`` call (host clock around 5 calls ending in
   ``torch.cuda.synchronize()``, after ``init_fn`` and 3 warm-up steps);
@@ -13,13 +15,15 @@ the bench's IPM options) and each ``kkt`` mode ("dense", "auto",
   ``csrc/btb.cu``) device time and its share of the busy time;
 
 and, at the same 32 starting points, the derivative passes timed alone:
-dense ``vmap(jacfwd(c))`` and ``vmap(jacfwd(grad(L)))`` against the
-compressed ``jac_blocks`` and ``hess_blocks``.
+dense ``vmap(jacfwd(c))`` and ``vmap(jacfwd(grad(L)))`` (hanging lane
+only: the contact leg's dense Hessian pass would hold 32 x 2628 seeds of
+its whole graph) against the compressed ``jac_blocks`` and
+``hess_blocks``.
 
 Prints one JSON object per line. Run from the root of the repository::
 
     python3 scripts/profile_torch_iteration.py [--out profile.json] \
-        [--modes dense,auto,structured]
+        [--modes dense,auto,structured] [--lane hanging|contact_leg]
 """
 
 import argparse
@@ -36,7 +40,8 @@ from torch.func import grad, jacfwd, vmap
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from opensim_moco_tpu_torch.config import full_precision  # noqa: E402
-from opensim_moco_tpu_torch.examples import hanging_muscle_study  # noqa: E402
+from opensim_moco_tpu_torch.examples import (  # noqa: E402
+    contact_leg_study, hanging_muscle_study)
 from opensim_moco_tpu_torch.parallel import batch_guesses  # noqa: E402
 from opensim_moco_tpu_torch.solver.ipm import (  # noqa: E402
     IPMOptions, make_kernel)
@@ -79,10 +84,11 @@ def _busy_share(prof):
     return launches, busy * 1e-6, (t_hi - t_lo) * 1e-6
 
 
-def profile_mode(tr, Z0, z0, mode, dev="cuda"):
+def profile_mode(tr, Z0, z0, mode, extra=None, dev="cuda"):
     nlp = tr.make_nlp(dev)
     init_fn, body_fn, _, _ = make_kernel(
-        nlp, IPMOptions(**BENCH, kkt=mode), scale_z0=z0, device=dev)
+        nlp, IPMOptions(**BENCH, kkt=mode, **(extra or {})), scale_z0=z0,
+        device=dev)
     with full_precision(dev):
         carry = init_fn(Z0)
         for _ in range(3):
@@ -118,9 +124,9 @@ def profile_mode(tr, Z0, z0, mode, dev="cuda"):
                              for k, s, c in top]}
 
 
-def derivative_passes(tr, Z0, dev="cuda"):
-    """Dense and compressed derivative passes at the same points (the NLP
-    as transcribed: no scaling, fixed variables kept)."""
+def derivative_passes(tr, Z0, dense=True, dev="cuda"):
+    """Dense (with ``dense``) and compressed derivative passes at the same
+    points (the NLP as transcribed: no scaling, fixed variables kept)."""
     nlp = tr.make_nlp(dev)
     st = nlp.structure
     cs = CompiledStructure(st.var_blocks, st.con_blocks, st.border_vars,
@@ -140,13 +146,16 @@ def derivative_passes(tr, Z0, dev="cuda"):
         out = {"n": nlp.n, "m": nlp.m, "N": cs.N, "nv": cs.nv, "nc": cs.nc,
                "jac_seeds": int(bd.SJ.shape[0]),
                "hess_seeds": int(bd.SH.shape[0]),
-               "dense_J_s": _host_s(
-                   lambda: vmap(jacfwd(nlp.constraints))(z), 5),
-               "dense_W_s": _host_s(
-                   lambda: vmap(jacfwd(grad(lag)))(z, nu), 5),
-               "jac_blocks_s": _host_s(lambda: bd.jac_blocks(z), 5),
-               "hess_blocks_s": _host_s(
-                   lambda: bd.hess_blocks(lag_grad, z, nu), 5)}
+               "c_s": _host_s(lambda: nlp.constraints(z), 5),
+               "f_s": _host_s(lambda: nlp.objective(z), 5)}
+        if dense:
+            out["dense_J_s"] = _host_s(
+                lambda: vmap(jacfwd(nlp.constraints))(z), 5)
+            out["dense_W_s"] = _host_s(
+                lambda: vmap(jacfwd(grad(lag)))(z, nu), 5)
+        out["jac_blocks_s"] = _host_s(lambda: bd.jac_blocks(z), 5)
+        out["hess_blocks_s"] = _host_s(
+            lambda: bd.hess_blocks(lag_grad, z, nu), 5)
     return out
 
 
@@ -154,6 +163,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
     ap.add_argument("--modes", default="dense,auto,structured")
+    ap.add_argument("--lane", default="hanging",
+                    choices=("hanging", "contact_leg"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("this profile needs a CUDA card")
@@ -162,14 +173,21 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
-    tr = hanging_muscle_study(25, ignore_tendon_compliance=False,
-                              ignore_activation_dynamics=False,
-                              tendon_dynamics_implicit=True).transcription()
+    if args.lane == "hanging":
+        tr = hanging_muscle_study(
+            25, ignore_tendon_compliance=False,
+            ignore_activation_dynamics=False,
+            tendon_dynamics_implicit=True).transcription()
+    else:
+        tr = contact_leg_study(50).transcription()
     Z0 = batch_guesses(tr, 32, scale=0.05, seed=0)
-    results = {"card": card, "derivatives": derivative_passes(tr, Z0)}
+    results = {"card": card, "lane": args.lane, "derivatives":
+               derivative_passes(tr, Z0, dense=args.lane == "hanging")}
     print(json.dumps(results["derivatives"]), flush=True)
+    extra = (None if args.lane == "hanging" else
+             {"hessian_approximation": "objective-only"})
     for mode in args.modes.split(","):
-        results[mode] = profile_mode(tr, Z0, tr.initial_guess(), mode)
+        results[mode] = profile_mode(tr, Z0, tr.initial_guess(), mode, extra)
         print(json.dumps(results[mode]), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))

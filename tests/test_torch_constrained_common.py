@@ -178,10 +178,12 @@ def _port_carry(cj):
     return tipm.Carry(*[torch.as_tensor(np.array(a)) for a in cj])
 
 
-def check_iterate_parity(trj, trt, opts, rtol, lanes=4, chained=True):
+def check_iterate_parity(trj, trt, opts, rtol, lanes=4, chained=True,
+                         scaled=True):
     """JAX ``make_kernel`` under ``jit(vmap(.))`` against the port's, from
-    ``lanes`` jittered starts, scaled at the guess."""
-    z0 = trt.initial_guess()
+    ``lanes`` jittered starts, scaled at the guess (unscaled with
+    ``scaled=False``)."""
+    z0 = trt.initial_guess() if scaled else None
     Z0 = batch_guesses(trt, lanes, scale=0.05, seed=0)
     init_j, body_j = (jax.jit(jax.vmap(f)) for f in jipm.make_kernel(
         trj.make_nlp(), jipm.IPMOptions(**opts), scale_z0=z0)[:2])
