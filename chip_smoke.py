@@ -4,16 +4,18 @@ The main path is a batched interior-point solve of the hanging-muscle
 minimum-time problem (a DeGrooteFregly2016 muscle lifting a 0.5 kg mass)
 through ``opensim_moco_tpu_torch.parallel.make_batched_solver``, in
 float64, at the bench configuration: Hermite-Simpson at 25 mesh
-intervals, 32 jittered starts, the bench's IPM options.
+intervals, 32 jittered starts, the bench's IPM options. So that the whole
+script stays under 20 minutes, the bench's ``max_iter`` of 200 is cut to
+60 (phases 2-9), 50 (phase 5), 30 (phase 11) and 40 (phase 17): a lane
+left at ``max_iter`` holds its batch to the end.
 
 Phases, one report line each:
 
 1. device: the card's name and power limit; no card, no run. Then the
    hand-written kernels are built from ``opensim_moco_tpu_torch/csrc``;
 2. full-dynamics lane (activation + implicit tendon compliance),
-   ``kkt="dense"``, B=8 (the first 8 of the 32 starts, so that the whole
-   script stays near 10 minutes): converged, strict, mean/max iterations,
-   wall seconds;
+   ``kkt="dense"``, B=8 (the first 8 of the 32 starts): converged,
+   strict, mean/max iterations, wall seconds;
 3. card against CPU, iterate level, ``kkt="dense"``: ``init_fn`` and 3
    ``body_fn`` steps on both devices for the same 32 lanes; z, nu, wL and
    wU agree per lane to 1e-6 of their magnitude, mu and the iteration
@@ -114,22 +116,46 @@ goals), on the planar contact leg of ``tests/contact_leg.py``
     steps alone on the CPU from the card's carry within 1e-6, mu and the
     counters exact after 3 chained steps).
 
+The ``Track`` tool (MocoTrack), with its own IPM options (tol 1e-4,
+``mu_init`` 1e-2, ``objective-only`` curvature) and ``max_iter`` cut from
+the tool's 2000 to 200:
+
+19. ``Track.solve()`` on the card for the point mass of
+    ``tests/test_track.py`` (the JAX test's recovery of its motion and
+    control); then the contact leg through ``Track``
+    (``examples.contact_leg_track_study(50)``: the coordinates from a
+    low-passed ``StoTable`` with derived speeds, six markers from a .trc,
+    and the leg's effort, periodicity and GRF goals), B=32: lane 0 the
+    tool's ``make_guess``, lanes 1-31 that guess plus the jitter of
+    ``batch_guesses(tr, 32, scale=0.05, seed=0)``, clipped to the bounds
+    (``_track_starts``), ``kkt="structured"``, with n, m, K1's shape and
+    launches; then K1 against its plain version on this lane's first
+    Newton blocks;
+20. the same lane with ``hessian_approximation="exact"``, lanes 0-7,
+    ``max_iter`` 25: lanes, strict lanes, iterations and final KKT
+    errors, reported, not gated (it fails on a non-finite iterate or a K1
+    disagreement on its first Newton blocks only);
+21. card against CPU for lanes 0-3 of phase 19 as in phase 14 (each of 3
+    steps alone on the CPU from the card's carry within 1e-6, mu and the
+    counters exact after 3 chained steps).
+
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
 bound, at shape (a), and under a key that names shape (b) the same times
 at shape (b), which the main path does not launch; the solve also under
 a key for its 1-column times at shape (a); and under a key per shape the
 same numbers for the Newton blocks of phases 10 and 13, with the
-launches of that phase's solve (phases 10, 13, 15, 16 and 17). The line
-before it gives each phase's
-wall seconds. The last line of standard output is the result object.
+launches of that phase's solve (phases 10, 13, 15, 16, 17, 19 and 20;
+the ``Track`` lanes' keys start with ``track_``). The line before it
+gives each phase's wall seconds. The last line of standard output is the result object.
 Run from the root of the repository::
 
     python3 chip_smoke.py [--out results.json] [--phases 8,10]
 
 ``--phases 8`` builds K1 and runs only its checks (about a minute): the
 loop to iterate on the kernel with; ``--phases 15,16`` runs the inverse
-problems and ``--phases 17,18`` the contact leg.
+problems, ``--phases 17,18`` the contact leg and ``--phases 19,20,21``
+the ``Track`` tool.
 """
 
 import argparse
@@ -633,7 +659,7 @@ def _factor_spread(torch, D, L, Bm, C):
     return _lane_rel_err(moved, ref)
 
 
-def _newton_k1(torch, label, tr, opts, Z0, launches):
+def _newton_k1(torch, label, tr, opts, Z0, launches, z0=None):
     """K1 against its plain version on a lane's first Newton blocks, in
     the form of phase 8a: the factor, then a 1-column solve. The factors
     and the solutions agree per lane to 1e-10, or, where the blocks are
@@ -647,9 +673,10 @@ def _newton_k1(torch, label, tr, opts, Z0, launches):
     1.7e-10 in both and solutions that differ by 3e-8, K1 from the plain
     version as the plain version from the library.) The kernels line
     takes the result under a key naming its shape, with ``launches``
-    (that lane's solve's counts)."""
-    blocks = _capture_first_newton_blocks(torch, tr, opts,
-                                          tr.initial_guess(), Z0)
+    (that lane's solve's counts). The NLP is scaled at ``z0`` (default:
+    the bounds-midpoint guess), as the lane's solve scales it."""
+    blocks = _capture_first_newton_blocks(
+        torch, tr, opts, tr.initial_guess() if z0 is None else z0, Z0)
     D, _, _, C = blocks
     big = D.shape[1] * D.shape[2] + C.shape[-1] > LARGE_KKT_DIM
     res = _check_btb(torch, *blocks, (1,), 1, 20 if big else 200)
@@ -693,6 +720,58 @@ def _arm_inverse(mesh_interval):
                    reserves_weight=inverse_arm.RESERVES_WEIGHT)
 
 
+def _track_starts(tr, guess, B):
+    """B starts of a ``Track`` lane: lane 0 the tool's guess as it is, the
+    others that guess plus the jitter of ``batch_guesses(tr, B,
+    scale=0.05, seed=0)`` (its difference from the bounds-midpoint guess),
+    clipped to the bounds."""
+    from opensim_moco_tpu_torch.parallel import batch_guesses
+
+    lb, ub = tr.bounds()
+    Z = np.clip(guess + (batch_guesses(tr, B, scale=0.05, seed=0)
+                         - tr.initial_guess()), lb, ub)
+    Z[0] = guess
+    return Z
+
+
+def _rms_tracking_err(res, tr, reference):
+    """The largest, over the converged lanes, RMS over the grid and the
+    coordinates of their distance from the tracked reference (a
+    ``StateTrackingGoal``'s ``reference``)."""
+    names = [n for n in reference if n.endswith("/value")]
+    cols = [tr.rep.state_names.index(n) for n in names]
+    errs = [np.sqrt(np.mean([(Y[:, c] - np.interp(ts, *reference[n])) ** 2
+                             for c, n in zip(cols, names)]))
+            for ts, Y, _, _ in _lane_iterates(res, tr)]
+    return float(max(errs)) if errs else None
+
+
+def _point_mass_track():
+    """``tests/test_track.py``'s ``Track`` (a 1 kg slider driven by
+    sin(2 pi t), its motion tracked at weight 10), the reference times
+    and the analytic coordinate."""
+    from opensim_moco_tpu_torch.models import MechModelBuilder
+    from opensim_moco_tpu_torch.models.model import Model
+    from opensim_moco_tpu_torch.tools import Track
+
+    b = MechModelBuilder(gravity=(0.0, 0.0, 0.0))
+    b.add_body("b", mass=1.0, joint_name="j", kind="prismatic",
+               axis=(1, 0, 0), coord_name="q")
+    model = Model(b.finalize())
+    model.add_coordinate_actuator("act", "q", optimal_force=1.0,
+                                  min_control=-10, max_control=10)
+    model.finalize()
+    w = 2 * np.pi
+    times = np.linspace(0, 1.0, 101)
+    q = times / w - np.sin(w * times) / w ** 2
+    u = (1 - np.cos(w * times)) / w
+    return Track(model=model,
+                 states_reference=(times, {"/jointset/j/q/value": q,
+                                           "/jointset/j/q/speed": u}),
+                 states_global_weight=10.0, control_effort_weight=0.0001,
+                 mesh_interval=0.025, convergence_tolerance=1e-5), times, q
+
+
 def _check_lanes(name, stats):
     if stats["converged"] == 0:
         _fail(f"{name}: no lane converged")
@@ -706,7 +785,8 @@ def main():
     ap.add_argument("--out", help="also write the phase results to this "
                     "JSON file")
     ap.add_argument("--phases",
-                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
+                    default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
+                    "19,20,21",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -718,7 +798,7 @@ def main():
         _fail("torch.cuda.is_available() is False: this check needs a CUDA "
               "card and has no CPU fallback")
     from opensim_moco_tpu_torch.examples import (
-        contact_leg_study, coupler_pendulum_study,
+        contact_leg_study, contact_leg_track_study, coupler_pendulum_study,
         double_pendulum_swingup_study, hanging_muscle_inverse,
         hanging_muscle_study, kirk_min_effort_study, oscillator_mass_study)
     from opensim_moco_tpu_torch.ops import _build
@@ -748,7 +828,10 @@ def main():
     tr = hanging_muscle_study(25, ignore_tendon_compliance=False,
                               ignore_activation_dynamics=False,
                               tendon_dynamics_implicit=True).transcription()
-    opts = IPMOptions(max_iter=200, kkt="dense", **bench)
+    # the bench's max_iter of 200 cut to 60 (phases 2-9; 5 at 50, 11 at 30,
+    # 17 at 40), so that the whole script stays under 1,200 s: the lanes
+    # left at max_iter hold each batch to the end (PERF.md, section 6)
+    opts = IPMOptions(max_iter=60, kkt="dense", **bench)
     opts_st = dataclasses.replace(opts, kkt="structured")
     z0 = tr.initial_guess()
     Z0 = batch_guesses(tr, 32, scale=0.05, seed=0)
@@ -758,7 +841,8 @@ def main():
     if 2 in phases:
         phase_start[2] = time.perf_counter()
         res, stats = _solve_lane(torch, tr, opts, z0, Z0[:8], dev)
-        print("phase 2 full dynamics, kkt=dense (mesh 25, B=8, f64, cuda): "
+        print("phase 2 full dynamics, kkt=dense (mesh 25, B=8, max_iter 60, "
+              "f64, cuda): "
               + json.dumps(stats), flush=True)
         out["full_dynamics_dense"] = stats
         if stats["converged"] == 0:
@@ -811,11 +895,12 @@ def main():
                                     ignore_activation_dynamics=True,
                                     tendon_dynamics_implicit=False
                                     ).transcription()
-        opts_s = IPMOptions(max_iter=150, kkt="dense", **bench)
+        opts_s = IPMOptions(max_iter=50, kkt="dense", **bench)
         Z0_s = batch_guesses(tr_s, 8, scale=0.05, seed=0)
         _, stats_s = _solve_lane(torch, tr_s, opts_s, tr_s.initial_guess(),
                                  Z0_s, dev)
-        print("phase 5 simplified, kkt=dense (mesh 25, B=8, f64, cuda): "
+        print("phase 5 simplified, kkt=dense (mesh 25, B=8, max_iter 50, "
+              "f64, cuda): "
               + json.dumps(stats_s), flush=True)
         out["simplified_dense"] = stats_s
         if stats_s["converged"] == 0:
@@ -827,7 +912,8 @@ def main():
         phase_start[6] = time.perf_counter()
         _, stats6 = _solve_lane(torch, tr, dataclasses.replace(
             opts, kkt="auto"), z0, Z0, dev, LAUNCHES)
-        print("phase 6 full dynamics, kkt=auto (mesh 25, B=32, f64, cuda): "
+        print("phase 6 full dynamics, kkt=auto (mesh 25, B=32, max_iter 60, "
+              "f64, cuda): "
               + json.dumps(stats6), flush=True)
         out["full_dynamics_auto"] = stats6
         if stats6["converged"] == 0:
@@ -842,8 +928,8 @@ def main():
         res7, stats7 = _solve_lane(torch, tr, opts_st, z0, Z0, dev,
                                    LAUNCHES)
         launches = stats7["launches"]
-        print("phase 7 full dynamics, kkt=structured (mesh 25, B=32, f64, "
-              "cuda): " + json.dumps(stats7), flush=True)
+        print("phase 7 full dynamics, kkt=structured (mesh 25, B=32, "
+              "max_iter 60, f64, cuda): " + json.dumps(stats7), flush=True)
         out["full_dynamics_structured"] = stats7
         if stats7["converged"] == 0:
             _fail("phase 7: no lane converged")
@@ -973,11 +1059,12 @@ def main():
     # ---- phase 11: the same lane, dense chol-schur KKT
     if 11 in phases:
         phase_start[11] = time.perf_counter()
-        opts11 = dataclasses.replace(opts10, kkt="dense",
+        # no lane converges under chol-schur (8 of 8 ran to max_iter 200)
+        opts11 = dataclasses.replace(opts10, kkt="dense", max_iter=30,
                                      dense_factorization="chol-schur")
         res11, stats11 = _solve_lane(torch, tr10, opts11, z10, Z10[:8], dev)
-        print("phase 11 swing-up, kkt=dense chol-schur (mesh 25, B=8, f64, "
-              "cuda): " + json.dumps(stats11), flush=True)
+        print("phase 11 swing-up, kkt=dense chol-schur (mesh 25, B=8, "
+              "max_iter 30, f64, cuda): " + json.dumps(stats11), flush=True)
         out["swingup_chol_schur"] = stats11
         if res10 is not None:
             both = res10.converged[:8].cpu().numpy() & \
@@ -1157,15 +1244,15 @@ def main():
         # bench's gait2d lane (bench.py:106-110): from the jittered
         # bounds-midpoint starts the exact Hessian's contact curvature
         # drives the regularization up until steps stall
-        opts17 = IPMOptions(max_iter=200, kkt="structured",
+        opts17 = IPMOptions(max_iter=40, kkt="structured",
                             hessian_approximation="objective-only", **bench)
     if 17 in phases:
         phase_start[17] = time.perf_counter()
         res17, stats17 = _solve_lane(torch, tr17, opts17, z17, Z17, dev,
                                      LAUNCHES)
         stats17.update(_kkt_shape(tr17))
-        print("phase 17 contact leg, kkt=structured (mesh 50, B=32, f64, "
-              "cuda; nb is the padded block width, nb_inner the widest "
+        print("phase 17 contact leg, kkt=structured (mesh 50, B=32, "
+              "max_iter 40, f64, cuda; nb is the padded block width, nb_inner the widest "
               "block but the last): " + json.dumps(stats17), flush=True)
         out["contact_leg_structured"] = stats17
         _check_lanes("phase 17", stats17)
@@ -1183,8 +1270,81 @@ def main():
                 or not all(par18["exact"].values()):
             _fail("phase 18: card and CPU iterates disagree")
 
-    # the K1 checks of phases 10, 13, 15, 16 and 17 join the kernels line by
-    # shape
+    # ---- phases 19-21: the Track tool
+    if phases & {19, 20, 21}:
+        st19, g19 = contact_leg_track_study(50)
+        tr19 = st19.transcription()
+        Z19 = _track_starts(tr19, g19, 32)
+        # the tool's options, max_iter cut from 2000 to 200
+        opts19 = dataclasses.replace(st19.ipm_options, max_iter=200,
+                                     kkt="structured")
+    if 19 in phases:
+        phase_start[19] = time.perf_counter()
+        track, times, q_ref = _point_mass_track()
+        t0 = time.perf_counter()
+        sol = track.solve()
+        pm = {"success": sol.success, "iterations": sol.num_iterations,
+              "wall_s": time.perf_counter() - t0,
+              "max_q_err": float(np.abs(sol.state("/jointset/j/q/value") -
+                                        np.interp(sol.time, times,
+                                                  q_ref)).max()),
+              "max_control_err": float(np.abs(
+                  sol.control("/forceset/act") -
+                  np.sin(2 * np.pi * sol.time))[3:-3].max())}
+        print("phase 19 point mass Track.solve() (mesh 40, cuda): "
+              + json.dumps(pm), flush=True)
+        out["track_point_mass"] = pm
+        if not sol.success or pm["max_q_err"] > 2e-3 or \
+                pm["max_control_err"] > 5e-2:
+            _fail("phase 19: Track.solve() did not recover the point mass's "
+                  "motion and control")
+        res19, stats19 = _solve_lane(torch, tr19, opts19, g19, Z19, dev,
+                                     LAUNCHES)
+        stats19.update(_kkt_shape(tr19))
+        f19 = res19.f.cpu().numpy()[res19.converged.cpu().numpy()]
+        stats19["f_converged_min_max"] = ([float(f19.min()),
+                                           float(f19.max())]
+                                          if f19.size else None)
+        stats19["max_rms_coordinate_err"] = _rms_tracking_err(
+            res19, tr19, st19.problem.goals[0].reference)
+        print("phase 19 contact leg Track, kkt=structured (mesh 50, B=32, "
+              "max_iter 200, f64, cuda; lane 0 make_guess): "
+              + json.dumps(stats19), flush=True)
+        out["contact_leg_track"] = stats19
+        _check_lanes("phase 19", stats19)
+        key, chk = _newton_k1(torch, "phase 19 contact leg Track", tr19,
+                              opts19, Z19, stats19["launches"], z0=g19)
+        newton["track_" + key] = chk
+    if 20 in phases:
+        phase_start[20] = time.perf_counter()
+        opts20 = dataclasses.replace(opts19, max_iter=25,
+                                     hessian_approximation="exact")
+        res20, stats20 = _solve_lane(torch, tr19, opts20, g19, Z19[:8], dev,
+                                     LAUNCHES)
+        stats20["kkt_error"] = res20.kkt_error.cpu().tolist()
+        stats20["iterations"] = res20.iterations.cpu().tolist()
+        print("phase 20 contact leg Track, exact Hessian, kkt=structured "
+              "(mesh 50, B=8, max_iter 25, f64, cuda; reported, not gated): "
+              + json.dumps(stats20), flush=True)
+        out["contact_leg_track_exact"] = stats20
+        key, chk = _newton_k1(torch, "phase 20 contact leg Track exact",
+                              tr19, opts20, Z19[:8], stats20["launches"],
+                              z0=g19)
+        newton["track_exact_" + key] = chk
+    if 21 in phases:
+        phase_start[21] = time.perf_counter()
+        par21 = _iterate_parity(torch, tr19, opts19, g19, Z19[:4], COUNTERS,
+                                stepwise=True)
+        print("phase 21 iterate parity cuda vs cpu, contact leg Track lanes "
+              "0-3, 3 steps, kkt=structured: " + json.dumps(par21),
+              flush=True)
+        out["iterate_parity_contact_leg_track"] = par21
+        if max(par21["stepwise_max_lane_rel_err"].values()) > ITERATE_RTOL \
+                or not all(par21["exact"].values()):
+            _fail("phase 21: card and CPU iterates disagree")
+
+    # the K1 checks of phases 10, 13, 15, 16, 17, 19 and 20 join the
+    # kernels line by shape
     for key, chk in newton.items():
         if not kernels:  # phase 8 not run: these shapes lead
             kernels = [{"name": kern, "route": "cuda",

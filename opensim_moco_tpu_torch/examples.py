@@ -4,9 +4,11 @@ Counterparts of ``opensim_moco_tpu.examples`` builders, with the same
 signatures and the same problems, plus two problems of the JAX package's
 tests (the coupler-constrained double pendulum of ``test_constraints.py``
 and the oscillator mass of ``test_parameters.py``) and the planar contact
-leg of ``tests/contact_leg.py``; each returns a ready-to-solve
+leg of ``tests/contact_leg.py``, directly and through the ``Track``
+tool; each returns a ready-to-solve
 :class:`~opensim_moco_tpu_torch.ocp.study.Study`, but
-``hanging_muscle_inverse``, which returns an ``Inverse`` tool.
+``hanging_muscle_inverse``, which returns an ``Inverse`` tool, and
+``contact_leg_track_study``, which returns the study and its guess.
 """
 
 from __future__ import annotations
@@ -331,3 +333,40 @@ def contact_leg_study(num_mesh_intervals=50):
     leg = _contact_leg_module()
     model = leg.build_leg(MechModelBuilder, Model, CubicSpline, dgf)
     return leg.build_study(ocp, model, num_mesh_intervals)
+
+
+def contact_leg_track_study(num_mesh_intervals=50):
+    """The contact leg's squat through the ``Track`` tool, in the shape of
+    the JAX package's ``gait2d_tracking_study`` (``examples.py:238``): the
+    reference coordinates as a ``StoTable`` (low-passed at 6 Hz, speeds
+    from finite differences) and the leg's markers from a .trc (one
+    marker blank in a few frames, one on no body), tracked at
+    ``TRACKING_WEIGHT`` and 1; then the leg's effort, periodicity and GRF
+    goals and its bounds (``tests/contact_leg.py``
+    ``add_goals_and_bounds``). Returns ``(study, guess)``, the guess
+    ``Track.make_guess``."""
+    import io
+
+    from . import ocp
+    from .tools.track import Track
+    from .utils.splines import CubicSpline
+    from .utils.tables import StoTable, read_trc
+
+    leg = _contact_leg_module()
+    model = leg.build_leg(MechModelBuilder, Model, CubicSpline, dgf)
+    t, q, _ = leg.reference()
+    table = StoTable(t, [f"{leg.coordinate_path(c)}/value"
+                         for c in leg.COORDS], q)
+    track = Track(model=model, states_reference=table,
+                  states_global_weight=leg.TRACKING_WEIGHT,
+                  track_reference_position_derivatives=True,
+                  lowpass_cutoff=6.0, initial_time=0.0,
+                  final_time=leg.DURATION,
+                  mesh_interval=leg.DURATION / num_mesh_intervals,
+                  control_effort_weight=0.0,
+                  markers_reference=read_trc(io.StringIO(
+                      leg.marker_trc_text())),
+                  allow_unused_references=True)
+    study = track.build_study()
+    leg.add_goals_and_bounds(ocp, study.problem, model)
+    return study, track.make_guess(study)

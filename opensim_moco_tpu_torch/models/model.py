@@ -255,6 +255,10 @@ class Model:
         self._muscle_params: list[dict] = []
         self.contacts: list[StationContactSpec] = []
         self.sphere_contacts: list[SphereContactSpec] = []
+        # the MarkerSet: marker name -> (body index, location in the body
+        # frame), read by MarkerTrackingGoal and Track (JAX
+        # models/model.py:252-255); no parameter, so not in ``p``
+        self.markers: dict[str, tuple] = {}
         self.position_motion = None
         self.prescribed = False
         self._finalized = False

@@ -1,8 +1,8 @@
 from .goals import (ContactTrackingGoal, ControlGoal, CustomGoal,
                     FinalTimeGoal, Goal, InitialActivationGoal,
                     InitialForceEquilibriumGoal,
-                    InitialVelocityEquilibriumDGFGoal, PeriodicityGoal,
-                    StateTrackingGoal, SumSquaredStateGoal)
+                    InitialVelocityEquilibriumDGFGoal, MarkerTrackingGoal,
+                    PeriodicityGoal, StateTrackingGoal, SumSquaredStateGoal)
 from .problem import (ParameterSpec, PathConstraintSpec, Problem,
                       ProblemRep, VariableInfo)
 from .study import Solution, Study
@@ -11,7 +11,7 @@ __all__ = [
     "Goal", "ControlGoal", "CustomGoal", "FinalTimeGoal", "InitialActivationGoal",
     "InitialForceEquilibriumGoal", "InitialVelocityEquilibriumDGFGoal",
     "SumSquaredStateGoal", "StateTrackingGoal", "PeriodicityGoal",
-    "ContactTrackingGoal",
+    "ContactTrackingGoal", "MarkerTrackingGoal",
     "ParameterSpec", "PathConstraintSpec", "Problem", "ProblemRep",
     "VariableInfo", "Solution", "Study",
 ]

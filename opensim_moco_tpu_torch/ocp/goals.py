@@ -7,9 +7,10 @@ combines endpoint tuples ``(t, y, x, lam, deriv)`` (leading dims only)
 with the quadrature of the integrand. A goal is a cost term or, in
 ``"endpoint_constraint"`` mode, a set of constraint rows (``values``).
 
-Reference trajectories (``StateTrackingGoal``, ``ContactTrackingGoal``)
-are interpolated linearly, clamped at the ends (``jnp.interp`` in the
-JAX package), from tables moved to the device once per (device, dtype).
+Reference trajectories (``StateTrackingGoal``, ``MarkerTrackingGoal``,
+``ContactTrackingGoal``) are interpolated linearly, clamped at the ends
+(``jnp.interp`` in the JAX package), from tables moved to the device
+once per (device, dtype).
 
 The remaining goals of the JAX package are not ported yet (ROADMAP.md,
 queue 1).
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models import muscle as dgf
+from ..models.mech import StationSpec
 from ..utils.splines import _Coefficients, _rows
 
 
@@ -35,8 +37,8 @@ class _LinearTable:
     tensor of any leading shape."""
 
     def __init__(self, times, values):
-        x = np.asarray(times, dtype=np.float64)
-        y = np.asarray(values, dtype=np.float64)
+        x = np.ascontiguousarray(times, dtype=np.float64)
+        y = np.ascontiguousarray(values, dtype=np.float64)
         dx = np.diff(x).reshape((-1,) + (1,) * (y.ndim - 1))
         flat = np.abs(dx) <= np.spacing(np.finfo(np.float64).eps)
         slope = np.diff(y, axis=0) / np.where(flat, 1.0, dx)
@@ -196,6 +198,39 @@ class StateTrackingGoal(Goal):
                 if rng > 1e-12:
                     w = w / rng ** 2
             total = total + w * (y[..., i] - tables[name](t)) ** 2
+        return total
+
+
+@dataclasses.dataclass
+class MarkerTrackingGoal(Goal):
+    """Weighted squared distance of model markers from their reference
+    trajectories (MocoMarkerTrackingGoal; JAX ``ocp/goals.py:327``).
+    ``markers`` maps a marker name to (body index, location in the body
+    frame), ``reference`` a marker name to (times (K,), positions (K, 3)),
+    interpolated linearly per component on that marker's own times, and
+    ``marker_weights`` a marker name to its weight (default 1). The
+    markers are summed in the dict's order. Its integrand is per grid
+    point (the default ``hessian_block_local``)."""
+    name: str = "marker_tracking"
+    markers: dict = dataclasses.field(default_factory=dict)
+    reference: dict = dataclasses.field(default_factory=dict)
+    marker_weights: dict = dataclasses.field(default_factory=dict)
+    _tables: dict | None = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        m = rep.model
+        tables = _tables(self, self.reference)
+        # one pass over the tree for every marker
+        pos = m.mech.station_positions(
+            p["mech"], y[..., :m.nq],
+            [StationSpec(name, body, tuple(loc))
+             for name, (body, loc) in self.markers.items()])
+        total = torch.zeros_like(t)
+        for k, name in enumerate(self.markers):
+            err = pos[..., k, :] - tables[name](t)
+            total = total + self.marker_weights.get(name, 1.0) * \
+                (err * err).sum(-1)
         return total
 
 

@@ -1,11 +1,12 @@
-"""OpenSim storage (.sto/.mot) tables: read and write.
+"""OpenSim storage (.sto/.mot) and marker (.trc) tables.
 
 Counterpart of the table part of ``opensim_moco_tpu.utils.tables``
-(``StoTable`` ``:55``, ``read_sto`` ``:72``, ``write_sto`` ``:117``) in
-pure Python and numpy: header ``key=value`` lines up to ``endheader``,
-then a whitespace-separated table whose first column is time. Marker
-(.trc) tables and the trajectory writers are not ported yet (ROADMAP.md,
-queue 1).
+(``StoTable`` ``:55``, ``read_sto`` ``:72``, ``write_sto`` ``:117``,
+``TrcTable`` ``:213``, ``read_trc`` ``:230``) in pure Python and numpy:
+a .sto has header ``key=value`` lines up to ``endheader``, then a
+whitespace-separated table whose first column is time; a .trc has three
+header lines, a marker-name row, a component row and tab-separated
+frames. The trajectory writers are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -81,3 +82,48 @@ def write_sto(path, table: StoTable, name="table") -> None:
         for i, t in enumerate(table.time):
             row = "\t".join(f"{float(x):.17g}" for x in table.data[i])
             fh.write(f"{float(t):.17g}\t{row}\n")
+
+
+class TrcTable:
+    """Marker trajectories from a .trc file: ``time`` (K,),
+    ``marker_names`` and ``positions`` (K, M, 3) in metres, NaN where a
+    marker is missing (JAX ``utils/tables.py:213``)."""
+
+    def __init__(self, time, marker_names, positions, metadata=None):
+        self.time = np.asarray(time, dtype=np.float64)
+        self.marker_names = list(marker_names)
+        self.positions = np.asarray(positions, dtype=np.float64)
+        self.metadata = dict(metadata or {})
+
+    def marker(self, name):
+        return self.positions[:, self.marker_names.index(name)]
+
+
+def read_trc(path_or_buf) -> TrcTable:
+    """Parse a .trc file or an open text buffer: line 2 holds the header
+    keys and line 3 their values (a writer may pad either with tabs),
+    line 4 the marker names after ``Frame#`` and ``Time``, line 5 the
+    X/Y/Z components, then one frame per line. Positions are scaled from
+    the ``Units`` (``mm``, ``cm`` or ``m``) to metres; a blank cell is
+    NaN, and a short row is padded with NaN."""
+    if isinstance(path_or_buf, (str, bytes)):
+        with open(path_or_buf) as fh:
+            lines = fh.read().splitlines()
+    else:
+        lines = path_or_buf.read().splitlines()
+    if len(lines) < 6:
+        raise ValueError(f"{path_or_buf}: truncated TRC file")
+    keys = [c.strip() for c in lines[1].split("\t") if c.strip()]
+    vals = [c.strip() for c in lines[2].split("\t") if c.strip()]
+    meta = dict(zip(keys, vals))
+    scale = {"mm": 1e-3, "cm": 1e-2, "m": 1.0}.get(
+        meta.get("Units", "m").lower(), 1.0)
+    names = [c.strip() for c in lines[3].split("\t")[2:] if c.strip()]
+    rows = [[float(c) if c.strip() else np.nan for c in ln.split("\t")[1:]]
+            for ln in lines[5:] if ln.strip()]
+    M = len(names)
+    pos = np.full((len(rows), M, 3), np.nan)
+    for k, r in enumerate(rows):
+        dat = r[1:1 + 3 * M]
+        pos[k] = np.asarray(dat + [np.nan] * (3 * M - len(dat))).reshape(M, 3)
+    return TrcTable([r[0] for r in rows], names, pos * scale, meta)

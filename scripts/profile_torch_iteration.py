@@ -3,8 +3,11 @@
 For one lane, B=32, float64, the bench's IPM options (``--lane hanging``:
 the bench's full-dynamics hanging muscle at mesh 25; ``--lane
 contact_leg``: ``examples.contact_leg_study(50)`` with objective-only
-curvature, as ``chip_smoke.py`` phase 17 solves it) and each ``kkt`` mode
-("dense", "auto", "structured"), on one CUDA card:
+curvature, as ``chip_smoke.py`` phase 17 solves it; ``--lane
+contact_leg_track``: ``examples.contact_leg_track_study(50)`` from
+``chip_smoke.py`` phase 19's starts, scaled at the tool's guess, with
+objective-only curvature) and each ``kkt`` mode ("dense", "auto",
+"structured"), on one CUDA card:
 
 * seconds per ``body_fn`` call (host clock around 5 calls ending in
   ``torch.cuda.synchronize()``, after ``init_fn`` and 3 warm-up steps);
@@ -18,12 +21,16 @@ and, at the same 32 starting points, the derivative passes timed alone:
 dense ``vmap(jacfwd(c))`` and ``vmap(jacfwd(grad(L)))`` (hanging lane
 only: the contact leg's dense Hessian pass would hold 32 x 2628 seeds of
 its whole graph) against the compressed ``jac_blocks`` and
-``hess_blocks``.
+``hess_blocks`` (of the Lagrangian, and of the objective alone, the
+curvature the leg's lanes use); on the ``Track`` lane also the same
+passes with its ``MarkerTrackingGoal`` taken out (``without_markers``),
+so that their difference is the marker goal's cost.
 
 Prints one JSON object per line. Run from the root of the repository::
 
     python3 scripts/profile_torch_iteration.py [--out profile.json] \
-        [--modes dense,auto,structured] [--lane hanging|contact_leg]
+        [--modes dense,auto,structured] \
+        [--lane hanging|contact_leg|contact_leg_track]
 """
 
 import argparse
@@ -39,9 +46,10 @@ from torch.func import grad, jacfwd, vmap
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from chip_smoke import _track_starts  # noqa: E402
 from opensim_moco_tpu_torch.config import full_precision  # noqa: E402
 from opensim_moco_tpu_torch.examples import (  # noqa: E402
-    contact_leg_study, hanging_muscle_study)
+    contact_leg_study, contact_leg_track_study, hanging_muscle_study)
 from opensim_moco_tpu_torch.parallel import batch_guesses  # noqa: E402
 from opensim_moco_tpu_torch.solver.ipm import (  # noqa: E402
     IPMOptions, make_kernel)
@@ -156,6 +164,11 @@ def derivative_passes(tr, Z0, dense=True, dev="cuda"):
         out["jac_blocks_s"] = _host_s(lambda: bd.jac_blocks(z), 5)
         out["hess_blocks_s"] = _host_s(
             lambda: bd.hess_blocks(lag_grad, z, nu), 5)
+        out["grad_f_s"] = _host_s(
+            lambda: grad(lambda q: nlp.objective(q).sum())(z), 5)
+        out["hess_blocks_objective_s"] = _host_s(lambda: bd.hess_blocks(
+            lambda zz, nn: grad(lambda q: nlp.objective(q).sum())(zz),
+            z, nu), 5)
     return out
 
 
@@ -164,7 +177,7 @@ def main():
     ap.add_argument("--out", help="also write the results to this JSON file")
     ap.add_argument("--modes", default="dense,auto,structured")
     ap.add_argument("--lane", default="hanging",
-                    choices=("hanging", "contact_leg"))
+                    choices=("hanging", "contact_leg", "contact_leg_track"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("this profile needs a CUDA card")
@@ -178,16 +191,29 @@ def main():
             25, ignore_tendon_compliance=False,
             ignore_activation_dynamics=False,
             tendon_dynamics_implicit=True).transcription()
-    else:
+    elif args.lane == "contact_leg":
         tr = contact_leg_study(50).transcription()
-    Z0 = batch_guesses(tr, 32, scale=0.05, seed=0)
+    if args.lane == "contact_leg_track":
+        study, z0 = contact_leg_track_study(50)
+        tr = study.transcription()
+        Z0 = _track_starts(tr, z0, 32)
+    else:
+        z0 = tr.initial_guess()
+        Z0 = batch_guesses(tr, 32, scale=0.05, seed=0)
     results = {"card": card, "lane": args.lane, "derivatives":
                derivative_passes(tr, Z0, dense=args.lane == "hanging")}
     print(json.dumps(results["derivatives"]), flush=True)
+    if args.lane == "contact_leg_track":
+        study.problem.goals = [g for g in study.problem.goals
+                               if g.name != "marker_tracking"]
+        results["without_markers"] = derivative_passes(
+            study.transcription(), Z0, dense=False)
+        print(json.dumps({"without_markers": results["without_markers"]}),
+              flush=True)
     extra = (None if args.lane == "hanging" else
              {"hessian_approximation": "objective-only"})
     for mode in args.modes.split(","):
-        results[mode] = profile_mode(tr, Z0, tr.initial_guess(), mode, extra)
+        results[mode] = profile_mode(tr, Z0, z0, mode, extra)
         print(json.dumps(results[mode]), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))

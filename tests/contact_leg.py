@@ -38,6 +38,13 @@ its path length in the mean pose of the squat. Coordinate actuators on
 all six coordinates (optimal force 100, controls in [-10, 10]) are the
 pelvis residuals and the joint reserves.
 
+Six markers sit on the bodies (``MARKERS``: one on the pelvis, two on the
+femur, one on the tibia, the heel and the toe on the foot);
+``build_leg`` sets them on ``model.markers``. ``marker_trc_text`` writes
+their positions along the reference as a .trc in mm, with the tibia's
+marker blank in a few frames in the middle and one more marker on no
+body.
+
 The reference: one squat in 1 s. The hip and knee follow cosines,
 hip = 0.05 + 0.4 (1 - cos 2 pi t) / 2 and knee = -0.1 - 0.8 (1 - cos
 2 pi t) / 2; the pelvis keeps tilt 0 and the ankle keeps the foot flat
@@ -109,6 +116,18 @@ EFFORT_WEIGHT = 0.1
 RESIDUAL_WEIGHT = 100.0
 GRF_WEIGHT = 0.001
 SAMPLES = 101
+# (name, body, location in the body frame); z offsets put the markers off
+# the sagittal plane, where rotations about z leave them
+MARKERS = (("PELV", 0, (-0.05, 0.04, 0.06)),
+           ("THIGH", 1, (0.03, -0.18, 0.07)),
+           ("KNEE", 1, (0.02, -0.38, 0.05)),
+           ("SHANK", 2, (0.03, -0.2, 0.04)),
+           ("HEEL", 3, (-0.04, -0.03, 0.0)),
+           ("TOE", 3, (0.16, -0.045, 0.01)))
+# a marker of the .trc on no body of the model, at a fixed point
+UNUSED_MARKER = ("FORCEPLATE", (0.3, 0.0, 0.2))
+# frames where SHANK is blank in the .trc
+BLANK_FRAMES = range(45, 50)
 
 
 class Identity:
@@ -192,6 +211,45 @@ def mean_pose():
     return _pose(*(np.mean(a) for a in _joint_angles(t)))
 
 
+def marker_positions(q):
+    """World positions (K, len(MARKERS), 3) of the markers at poses q
+    (K, 6), from the planar kinematics above."""
+    out = np.zeros((len(q), len(MARKERS), 3))
+    for k, qk in enumerate(q):
+        fr = _planar_frames(qk)
+        for i, (_, body, loc) in enumerate(MARKERS):
+            out[k, i, :2] = _world(fr, body, loc)
+            out[k, i, 2] = loc[2]
+    return out
+
+
+def marker_trc_text():
+    """The markers along the reference as .trc text, in mm, at the
+    SAMPLES reference times: MARKERS, SHANK blank in BLANK_FRAMES, and
+    UNUSED_MARKER last."""
+    t, q, _ = reference()
+    pos = marker_positions(q) * 1e3
+    names = [m[0] for m in MARKERS] + [UNUSED_MARKER[0]]
+    lines = ["PathFileType\t4\t(X/Y/Z)\tcontact_leg.trc",
+             "DataRate\tCameraRate\tNumFrames\tNumMarkers\tUnits\t"
+             "OrigDataRate\tOrigDataStartFrame\tOrigNumFrames",
+             f"{SAMPLES - 1:g}\t{SAMPLES - 1:g}\t{SAMPLES}\t{len(names)}\t"
+             f"mm\t{SAMPLES - 1:g}\t1\t{SAMPLES}",
+             "Frame#\tTime\t" + "\t\t\t".join(names),
+             "\t\t" + "\t".join(f"{c}{i + 1}" for i in range(len(names))
+                                 for c in "XYZ")]
+    shank = [m[0] for m in MARKERS].index("SHANK")
+    fixed = [f"{1e3 * v:.17g}" for v in UNUSED_MARKER[1]]
+    for k in range(SAMPLES):
+        cells = []
+        for i in range(len(MARKERS)):
+            cells += ([""] * 3 if i == shank and k in BLANK_FRAMES
+                      else [f"{v:.17g}" for v in pos[k, i]])
+        lines.append("\t".join([str(k + 1), f"{t[k]:.17g}"] + cells
+                                + fixed))
+    return "\n".join(lines) + "\n"
+
+
 def path_lengths(q):
     """Muscle path lengths at one pose q (6,)."""
     fr = _planar_frames(q)
@@ -241,6 +299,7 @@ def build_leg(MechModelBuilder, Model, CubicSpline, muscle):
         model.add_coordinate_actuator(
             f"{coord}_actuator", coord, optimal_force=ACTUATOR_FORCE,
             min_control=-ACTUATOR_BOUND, max_control=ACTUATOR_BOUND)
+    model.markers.update({name: (body, loc) for name, body, loc in MARKERS})
     return model.finalize()
 
 
@@ -260,14 +319,28 @@ def build_study(ocp, model, num_mesh_intervals=50):
     ``ocp`` module (``Problem``, ``Study`` and the goals) is given, for a
     ``model`` from :func:`build_leg`: Hermite-Simpson at
     ``num_mesh_intervals``; a ``StateTrackingGoal`` on the six coordinate
-    values, a ``ControlGoal`` with the residuals weighted heavily, a
-    ``PeriodicityGoal`` (endpoint constraints) on every state but
-    ``pelvis_tx/value``, a ``ContactTrackingGoal`` with one group (heel
-    and front) projected on the sagittal plane, and coordinate bounds
-    centred on the squat's mean pose."""
-    t, q, grf = reference()
+    values, then :func:`add_goals_and_bounds`."""
+    t, q, _ = reference()
     pr = ocp.Problem(model)
     pr.set_time_bounds(0.0, DURATION)
+    pr.add_goal(ocp.StateTrackingGoal(
+        name="state_tracking", weight=TRACKING_WEIGHT,
+        reference={f"{coordinate_path(c)}/value": (t, q[:, k])
+                   for k, c in enumerate(COORDS)}))
+    add_goals_and_bounds(ocp, pr, model)
+    study = ocp.Study(pr)
+    study.set_solver_options(num_mesh_intervals=num_mesh_intervals)
+    return study
+
+
+def add_goals_and_bounds(ocp, pr, model):
+    """Add to ``pr`` the goals of the squat but its state tracking: a
+    ``ControlGoal`` with the residuals weighted heavily, a
+    ``PeriodicityGoal`` (endpoint constraints) on every state but
+    ``pelvis_tx/value`` and a ``ContactTrackingGoal`` with one group (heel
+    and front) projected on the sagittal plane; and the coordinate bounds,
+    centred on the squat's mean pose, and the speed bounds."""
+    t, _, grf = reference()
     centre = mean_pose()
     for k, coord in enumerate(COORDS):
         h = BOUND_HALF_WIDTHS[k]
@@ -275,10 +348,6 @@ def build_study(ocp, model, num_mesh_intervals=50):
                           (centre[k] - h, centre[k] + h))
         pr.set_state_info(f"{coordinate_path(coord)}/speed",
                           (-SPEED_BOUNDS[k], SPEED_BOUNDS[k]))
-    pr.add_goal(ocp.StateTrackingGoal(
-        name="state_tracking", weight=TRACKING_WEIGHT,
-        reference={f"{coordinate_path(c)}/value": (t, q[:, k])
-                   for k, c in enumerate(COORDS)}))
     pr.add_goal(ocp.ControlGoal(
         name="effort", weight=EFFORT_WEIGHT,
         control_weights={f"/forceset/{c}_actuator": RESIDUAL_WEIGHT
@@ -293,6 +362,3 @@ def build_study(ocp, model, num_mesh_intervals=50):
         groups=((tuple(name for name, _, _ in SPHERES), "grf"),),
         reference={"grf": (t, grf)}, projection="plane",
         projection_vector=(0.0, 0.0, 1.0)))
-    study = ocp.Study(pr)
-    study.set_solver_options(num_mesh_intervals=num_mesh_intervals)
-    return study
