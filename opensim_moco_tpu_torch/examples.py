@@ -4,11 +4,13 @@ Counterparts of ``opensim_moco_tpu.examples`` builders, with the same
 signatures and the same problems, plus two problems of the JAX package's
 tests (the coupler-constrained double pendulum of ``test_constraints.py``
 and the oscillator mass of ``test_parameters.py``) and the planar contact
-leg of ``tests/contact_leg.py``, directly and through the ``Track``
-tool; each returns a ready-to-solve
-:class:`~opensim_moco_tpu_torch.ocp.study.Study`, but
+leg of ``example_models/contact_leg.py``, directly and through the
+``Track`` tool, and the planar walker of ``example_models/walker2d.py``
+through ``Track`` with gait2d's symmetry rows and bounds; each returns a
+ready-to-solve :class:`~opensim_moco_tpu_torch.ocp.study.Study`, but
 ``hanging_muscle_inverse``, which returns an ``Inverse`` tool, and
-``contact_leg_track_study``, which returns the study and its guess.
+``contact_leg_track_study`` and ``walker2d_track_study``, which return
+the study and its guess.
 """
 
 from __future__ import annotations
@@ -303,34 +305,19 @@ def coupler_pendulum_study(num_mesh_intervals=15,
     return study
 
 
-def _contact_leg_module():
-    """``tests/contact_leg.py`` of this checkout: the leg's data and its
-    builders, shared with the JAX package's tests (it imports neither
-    package)."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "tests", "contact_leg.py")
-    spec = importlib.util.spec_from_file_location("contact_leg", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def contact_leg_study(num_mesh_intervals=50):
     """A planar one-legged stance on two contact spheres tracking one squat
-    cycle in 1 s (``tests/contact_leg.py``: a pelvis on a three-coordinate
-    custom joint, a revolute hip, a spline-coupled custom knee, a revolute
-    ankle, four DGF muscles with activation dynamics, residuals and
-    reserves): coordinate tracking, effort with heavy residual weights,
-    periodicity of every state but ``pelvis_tx/value`` as endpoint
-    constraints, and sagittal GRF tracking; Hermite-Simpson at
-    ``num_mesh_intervals`` (gait2d's 50 by default)."""
+    cycle in 1 s (``example_models/contact_leg.py``: a pelvis on a
+    three-coordinate custom joint, a revolute hip, a spline-coupled custom
+    knee, a revolute ankle, four DGF muscles with activation dynamics,
+    residuals and reserves): coordinate tracking, effort with heavy
+    residual weights, periodicity of every state but ``pelvis_tx/value``
+    as endpoint constraints, and sagittal GRF tracking; Hermite-Simpson
+    at ``num_mesh_intervals`` (gait2d's 50 by default)."""
     from . import ocp
+    from .example_models import contact_leg as leg
     from .utils.splines import CubicSpline
 
-    leg = _contact_leg_module()
     model = leg.build_leg(MechModelBuilder, Model, CubicSpline, dgf)
     return leg.build_study(ocp, model, num_mesh_intervals)
 
@@ -342,17 +329,17 @@ def contact_leg_track_study(num_mesh_intervals=50):
     from finite differences) and the leg's markers from a .trc (one
     marker blank in a few frames, one on no body), tracked at
     ``TRACKING_WEIGHT`` and 1; then the leg's effort, periodicity and GRF
-    goals and its bounds (``tests/contact_leg.py``
+    goals and its bounds (``example_models/contact_leg.py``
     ``add_goals_and_bounds``). Returns ``(study, guess)``, the guess
     ``Track.make_guess``."""
     import io
 
     from . import ocp
+    from .example_models import contact_leg as leg
     from .tools.track import Track
     from .utils.splines import CubicSpline
     from .utils.tables import StoTable, read_trc
 
-    leg = _contact_leg_module()
     model = leg.build_leg(MechModelBuilder, Model, CubicSpline, dgf)
     t, q, _ = leg.reference()
     table = StoTable(t, [f"{leg.coordinate_path(c)}/value"
@@ -369,4 +356,93 @@ def contact_leg_track_study(num_mesh_intervals=50):
                   allow_unused_references=True)
     study = track.build_study()
     leg.add_goals_and_bounds(ocp, study.problem, model)
+    return study, track.make_guess(study)
+
+
+def _gait2d_symmetry_goal(model):
+    """Half-cycle symmetry pairs shared by gaitTracking and gaitPrediction
+    (example2DWalking.cpp:84-131 and :228-275; JAX ``examples.py:175``)."""
+    from .ocp import PeriodicityGoal
+
+    state_pairs = []
+    for c in model.coordinate_paths():
+        cname = c.split("/")[-1]
+        for suffix in ("/value", "/speed"):
+            if cname.endswith("_r"):
+                state_pairs.append((c + suffix,
+                                    c.replace("_r", "_l") + suffix, False))
+            elif cname.endswith("_l"):
+                state_pairs.append((c + suffix,
+                                    c.replace("_l", "_r") + suffix, False))
+            elif not cname.endswith("_tx"):
+                state_pairs.append((c + suffix, c + suffix, False))
+    state_pairs.append(("/jointset/groundPelvis/pelvis_tx/speed",
+                        "/jointset/groundPelvis/pelvis_tx/speed", False))
+    for m in model.muscles:
+        a = f"/forceset/{m.name}/activation"
+        if m.name.endswith("_r"):
+            state_pairs.append((a, a.replace("_r", "_l"), False))
+        elif m.name.endswith("_l"):
+            state_pairs.append((a, a.replace("_l", "_r"), False))
+    return PeriodicityGoal(name="symmetry", state_pairs=tuple(state_pairs),
+                           control_pairs=(("/forceset/lumbarAct",
+                                           "/forceset/lumbarAct", False),))
+
+
+def _gait2d_state_bounds(prob):
+    """Coordinate bounds shared by gaitTracking and gaitPrediction
+    (example2DWalking.cpp:154-170 and :282-303; JAX ``examples.py:203``)."""
+    d = np.pi / 180
+    prob.set_state_info("/jointset/groundPelvis/pelvis_tilt/value",
+                        (-20 * d, -10 * d))
+    prob.set_state_info("/jointset/groundPelvis/pelvis_tx/value", (0, 1))
+    prob.set_state_info("/jointset/groundPelvis/pelvis_ty/value",
+                        (0.75, 1.25))
+    for s in ("l", "r"):
+        prob.set_state_info(f"/jointset/hip_{s}/hip_flexion_{s}/value",
+                            (-10 * d, 60 * d))
+        prob.set_state_info(f"/jointset/knee_{s}/knee_angle_{s}/value",
+                            (-50 * d, 0))
+        prob.set_state_info(f"/jointset/ankle_{s}/ankle_angle_{s}/value",
+                            (-15 * d, 25 * d))
+    prob.set_state_info("/jointset/lumbar/lumbar/value", (0, 20 * d))
+
+
+def walker2d_track_study(num_mesh_intervals=50):
+    """The planar 18-muscle walker of ``example_models/walker2d.py`` through
+    the ``Track`` tool, step for step as the JAX package's
+    ``gait2d_tracking_study`` (``examples.py:238``), which reads gait2d's
+    files: the reference coordinates as a ``StoTable`` (low-passed at 6 Hz,
+    speeds from finite differences) tracked at weight 10, control effort
+    at 10, tolerance 1e-4, over the half gait cycle; then the half-cycle
+    symmetry rows, the two feet's sagittal GRF tracking at weight 1 and
+    gait2d's coordinate bounds. Returns ``(study, guess)``, the guess
+    ``Track.make_guess``."""
+    from .example_models import walker2d
+    from .ocp import ContactTrackingGoal
+    from .tools.track import Track
+    from .utils.splines import CubicSpline
+    from .utils.tables import StoTable
+
+    model = walker2d.build_walker(MechModelBuilder, Model, CubicSpline, dgf)
+    t, q = walker2d.reference()
+    ref = StoTable(t, [f"{walker2d.coordinate_path(c)}/value"
+                       for c in walker2d.COORDS], q)
+    final_time = walker2d.HALF_CYCLE
+    track = Track(model=model, states_reference=ref,
+                  states_global_weight=10.0, control_effort_weight=10.0,
+                  track_reference_position_derivatives=True,
+                  initial_time=0.0, final_time=final_time,
+                  mesh_interval=final_time / num_mesh_intervals,
+                  convergence_tolerance=1e-4, lowpass_cutoff=6.0)
+    study = track.build_study()
+    prob = study.problem
+    prob.add_goal(_gait2d_symmetry_goal(model))
+    prob.add_goal(ContactTrackingGoal(
+        name="contact", weight=1.0,
+        groups=((("contactHeel_r", "contactFront_r"), "Right_GRF"),
+                (("contactHeel_l", "contactFront_l"), "Left_GRF")),
+        reference=walker2d.grf_reference(),
+        projection="plane", projection_vector=(0.0, 0.0, 1.0)))
+    _gait2d_state_bounds(prob)
     return study, track.make_guess(study)

@@ -29,8 +29,12 @@ LAUNCHES = {"btb_factor": 0, "btb_solve": 0}
 # bytes of dynamic shared memory a kernel may ask for: the 227 KB a block
 # may have on sm_90, less 1 KB for the factor's static shared memory
 SMEM_LIMIT = 232448 - 1024
-# the widest block the factor takes (for k <= 23; less for wider borders):
-# its device-memory mode stages a panel of nb x 33 doubles in shared memory
+# the widest block the factor takes at k <= 23. Its device-memory mode
+# stages a panel buffer in shared memory of the largest of nb x 33 doubles
+# (the LU's panels), 32 x (nb + k) (a block of the triangle solves'
+# right-hand sides) and nb x k (the back sweep's block): nb x 33 sets the
+# limit up to k = 23 (738), 32 x (nb + k) from k = 24 to 33 (737 down to
+# 729), nb x k from k = 34 (717; 642 at k = 38)
 MAX_NB = 738
 # (N, nb, k) that cross the factor's edges: 32-row triangles and 32-column
 # panels (31-33, 63-65; 64 rows is also where a panel passes from one warp
@@ -40,15 +44,25 @@ MAX_NB = 738
 # and an endpoint-constraint row); nb 64/65 also crosses the solve's choice
 # between its narrow and its wide kernel. Then the wide borders of
 # periodicity rows: k = 16, 20 and 24 across their memory-mode bound (nb
-# 107 for k = 16, 105 for k = 20 and 24; k = 24 is also where MAX_NB
-# starts to shrink), and the contact leg's own shape (``examples.
-# contact_leg_study``: N = 50, nb = 120, k = 15)
+# 107 for k = 16, 105 for k = 20 and 24), and the contact leg's own shape
+# (``examples.contact_leg_study``: N = 50, nb = 120, k = 15). Then the
+# borders around k = 33, where the panel's nb x k term takes over from
+# 32 x (nb + k) at the widest blocks: k = 32, 33, 34 and 38 across their
+# memory-mode bound (the last shared-memory nb: 103, 102, 102 and 101), at
+# nb = 200 and 266 in device memory (where nb x k is the largest term at
+# k = 38) and at the widest nb k = 34 and 38 take (717, 642); and the
+# walker's own shape (``examples.walker2d_track_study``: N = 50,
+# nb = 266, k = 38, the half-cycle symmetry rows)
 EDGE_NBS = (1, 5, 31, 32, 33, 34, 63, 64, 65, 109, 110, 111, 112, 115, 116,
             200)
+WIDE_BORDERS = {32: 103, 33: 102, 34: 102, 38: 101}  # k: last smem nb
 EDGE_SHAPES = ([(N, nb, k) for N in (1, 2, 16) for nb in EDGE_NBS
                 for k in (0, 1, 2, 4)] +
                [(N, nb, k) for N in (1, 2) for nb in (104, 105, 106, 107, 108)
-                for k in (16, 20, 24)] + [(50, 120, 15)])
+                for k in (16, 20, 24)] + [(50, 120, 15)] +
+               [(N, nb, k) for k, last in WIDE_BORDERS.items()
+                for N in (1, 2) for nb in (last, last + 1, 200, 266)] +
+               [(1, 717, 34), (1, 642, 38), (50, 266, 38)])
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -119,7 +133,8 @@ def btb_factor(D, L, B, C) -> BTBFac:
     lib = _lib()
     if not smem and lib.btb_factor_smem_bytes(nb, k, 0) > SMEM_LIMIT:
         raise ValueError(f"btb_factor: nb={nb}, k={k} is wider than the "
-                         f"kernel takes (nb up to {MAX_NB} for k up to 23)")
+                         f"kernel takes (nb up to {MAX_NB} for k up to 23, "
+                         "less for wider borders)")
     S_lu = torch.empty_like(D)
     S_piv = torch.empty((Bt, N, nb), dtype=torch.int32, device=D.device)
     Tinv_B = torch.empty_like(B)

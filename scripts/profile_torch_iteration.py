@@ -6,8 +6,10 @@ contact_leg``: ``examples.contact_leg_study(50)`` with objective-only
 curvature, as ``chip_smoke.py`` phase 17 solves it; ``--lane
 contact_leg_track``: ``examples.contact_leg_track_study(50)`` from
 ``chip_smoke.py`` phase 19's starts, scaled at the tool's guess, with
-objective-only curvature) and each ``kkt`` mode ("dense", "auto",
-"structured"), on one CUDA card:
+objective-only curvature; ``--lane walker_track``: the same for
+``examples.walker2d_track_study(50)``, phase 22's lane) and each ``kkt``
+mode ("dense", "auto", "structured"), on one CUDA card (``--batch``
+lanes in place of 32):
 
 * seconds per ``body_fn`` call (host clock around 5 calls ending in
   ``torch.cuda.synchronize()``, after ``init_fn`` and 3 warm-up steps);
@@ -30,7 +32,8 @@ Prints one JSON object per line. Run from the root of the repository::
 
     python3 scripts/profile_torch_iteration.py [--out profile.json] \
         [--modes dense,auto,structured] \
-        [--lane hanging|contact_leg|contact_leg_track]
+        [--lane hanging|contact_leg|contact_leg_track|walker_track] \
+        [--batch 32]
 """
 
 import argparse
@@ -49,7 +52,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import _track_starts  # noqa: E402
 from opensim_moco_tpu_torch.config import full_precision  # noqa: E402
 from opensim_moco_tpu_torch.examples import (  # noqa: E402
-    contact_leg_study, contact_leg_track_study, hanging_muscle_study)
+    contact_leg_study, contact_leg_track_study, hanging_muscle_study,
+    walker2d_track_study)
 from opensim_moco_tpu_torch.parallel import batch_guesses  # noqa: E402
 from opensim_moco_tpu_torch.solver.ipm import (  # noqa: E402
     IPMOptions, make_kernel)
@@ -177,7 +181,9 @@ def main():
     ap.add_argument("--out", help="also write the results to this JSON file")
     ap.add_argument("--modes", default="dense,auto,structured")
     ap.add_argument("--lane", default="hanging",
-                    choices=("hanging", "contact_leg", "contact_leg_track"))
+                    choices=("hanging", "contact_leg", "contact_leg_track",
+                             "walker_track"))
+    ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("this profile needs a CUDA card")
@@ -193,14 +199,16 @@ def main():
             tendon_dynamics_implicit=True).transcription()
     elif args.lane == "contact_leg":
         tr = contact_leg_study(50).transcription()
-    if args.lane == "contact_leg_track":
-        study, z0 = contact_leg_track_study(50)
+    if args.lane in ("contact_leg_track", "walker_track"):
+        study, z0 = (contact_leg_track_study if args.lane ==
+                     "contact_leg_track" else walker2d_track_study)(50)
         tr = study.transcription()
-        Z0 = _track_starts(tr, z0, 32)
+        Z0 = _track_starts(tr, z0, args.batch)
     else:
         z0 = tr.initial_guess()
-        Z0 = batch_guesses(tr, 32, scale=0.05, seed=0)
-    results = {"card": card, "lane": args.lane, "derivatives":
+        Z0 = batch_guesses(tr, args.batch, scale=0.05, seed=0)
+    results = {"card": card, "lane": args.lane, "batch": args.batch,
+               "derivatives":
                derivative_passes(tr, Z0, dense=args.lane == "hanging")}
     print(json.dumps(results["derivatives"]), flush=True)
     if args.lane == "contact_leg_track":

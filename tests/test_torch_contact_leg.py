@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-import contact_leg
+from opensim_moco_tpu_torch.example_models import contact_leg
 from opensim_moco_tpu import ocp as jocp
 from opensim_moco_tpu.models import MechModelBuilder as JMechModelBuilder
 from opensim_moco_tpu.models import muscle as jdgf

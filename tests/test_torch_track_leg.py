@@ -16,7 +16,7 @@ import io
 import numpy as np
 import torch
 
-import contact_leg
+from opensim_moco_tpu_torch.example_models import contact_leg
 from opensim_moco_tpu_torch.examples import (contact_leg_study,
                                              contact_leg_track_study)
 from opensim_moco_tpu_torch.models import StationSpec
