@@ -34,7 +34,14 @@ forces: ``hamstrings`` (hip extension, knee flexion), ``bifemsh``,
 ``tib_ant``; each with l_opt = 0.55 l0 and l_slack = 0.45 l0, l0 its path
 length in the mean pose of the gait cycle. ``lumbarAct``, a coordinate
 actuator on ``lumbar`` (optimal force 150, controls in [-1, 1]), holds the
-torso. There are no residual or reserve actuators.
+torso. The pelvis has residuals as the contact leg has them
+(``RESIDUALS``): coordinate actuators ``pelvis_tilt_actuator``,
+``pelvis_tx_actuator`` and ``pelvis_ty_actuator`` (optimal force 100,
+controls in [-10, 10]). In ``Track``'s effort goal (weight 10) each
+costs 10 per squared control, as the leg's cost in its own. Without
+them the stiff contact leaves the pelvis's height alone to carry the
+dynamics, and the solver needs far more iterations (``PERF.md``). There
+are no reserve actuators.
 
 The reference: a gait cycle of period 2 T, T = ``HALF_CYCLE`` (the
 final time of the JAX package's ``gait2d_tracking_study``), of which the
@@ -103,6 +110,7 @@ MUSCLES = (
                          (3, (0.10, -0.01, 0.0)))),
 )
 LUMBAR_ACTUATOR = ("lumbarAct", 150.0, 1.0)  # name, optimal force, bound
+RESIDUALS = _leg.RESIDUALS  # pelvis_tilt, pelvis_tx, pelvis_ty
 COORDS = ("pelvis_tilt", "pelvis_tx", "pelvis_ty",
           "hip_flexion_r", "knee_angle_r", "ankle_angle_r",
           "hip_flexion_l", "knee_angle_l", "ankle_angle_l", "lumbar")
@@ -359,6 +367,10 @@ def build_walker(MechModelBuilder, Model, CubicSpline, muscle):
                              path=[(bodies[seg], loc) for seg, loc in path],
                              params=params, ignore_activation_dynamics=False,
                              ignore_tendon_compliance=True)
+    for coord in RESIDUALS:
+        model.add_coordinate_actuator(
+            f"{coord}_actuator", coord, optimal_force=_leg.ACTUATOR_FORCE,
+            min_control=-_leg.ACTUATOR_BOUND, max_control=_leg.ACTUATOR_BOUND)
     name, force, bound = LUMBAR_ACTUATOR
     model.add_coordinate_actuator(name, "lumbar", optimal_force=force,
                                   min_control=-bound, max_control=bound)

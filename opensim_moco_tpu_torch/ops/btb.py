@@ -51,8 +51,9 @@ MAX_NB = 738
 # memory-mode bound (the last shared-memory nb: 103, 102, 102 and 101), at
 # nb = 200 and 266 in device memory (where nb x k is the largest term at
 # k = 38) and at the widest nb k = 34 and 38 take (717, 642); and the
-# walker's own shape (``examples.walker2d_track_study``: N = 50,
-# nb = 266, k = 38, the half-cycle symmetry rows)
+# walker's own shape without and with its pelvis residuals
+# (``examples.walker2d_track_study``: N = 50, nb = 266 and 278, k = 38,
+# the half-cycle symmetry rows)
 EDGE_NBS = (1, 5, 31, 32, 33, 34, 63, 64, 65, 109, 110, 111, 112, 115, 116,
             200)
 WIDE_BORDERS = {32: 103, 33: 102, 34: 102, 38: 101}  # k: last smem nb
@@ -62,7 +63,7 @@ EDGE_SHAPES = ([(N, nb, k) for N in (1, 2, 16) for nb in EDGE_NBS
                 for k in (16, 20, 24)] + [(50, 120, 15)] +
                [(N, nb, k) for k, last in WIDE_BORDERS.items()
                 for N in (1, 2) for nb in (last, last + 1, 200, 266)] +
-               [(1, 717, 34), (1, 642, 38), (50, 266, 38)])
+               [(1, 717, 34), (1, 642, 38), (50, 266, 38), (50, 278, 38)])
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

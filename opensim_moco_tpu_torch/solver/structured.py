@@ -37,7 +37,10 @@ from torch.func import jvp, vjp, vmap
 
 from .kkt import CompiledStructure
 
-SEED_CHUNK = 16  # seeds per vmap call on large grids (N >= 32)
+# on large grids (N >= 32) one vmap call takes at most SEED_LANES
+# (lane, seed) pairs, and never fewer than SEED_CHUNK seeds
+SEED_CHUNK = 16
+SEED_LANES = 2048
 
 
 def lu_factor(K):
@@ -79,17 +82,19 @@ def _seeded_jvp(fn, z, seeds, n_blocks):
     """Tangents of ``fn`` at z (B, n) along each seed (S, n): (B, S, out).
 
     ``vmap`` of ``jvp`` over the seeds. On large grids (N >= 32 blocks) the
-    seeds go through in chunks of ``SEED_CHUNK``, as the JAX package's
-    ``lax.map(batch_size=16)`` does, so the evaluation tape is batched by
-    at most that many seeds."""
+    seeds go through in chunks, so that the evaluation tape is batched by
+    at most ``SEED_LANES`` (lane, seed) pairs: ``SEED_LANES // B`` seeds a
+    chunk, at least ``SEED_CHUNK`` (the JAX package's
+    ``lax.map(batch_size=16)``). Each chunk is a whole eager pass of the
+    function, so at few lanes the larger chunks cut the launches of an
+    iteration several times over."""
     def one(s):
         return jvp(fn, (z,), (s.expand_as(z),))[1]
 
-    if n_blocks < 32:
-        out = vmap(one)(seeds)
-    else:
-        out = torch.cat([vmap(one)(seeds[i:i + SEED_CHUNK])
-                         for i in range(0, seeds.shape[0], SEED_CHUNK)])
+    chunk = seeds.shape[0] if n_blocks < 32 else \
+        max(SEED_CHUNK, SEED_LANES // z.shape[0])
+    out = torch.cat([vmap(one)(seeds[i:i + chunk])
+                     for i in range(0, seeds.shape[0], chunk)])
     return out.transpose(0, 1)
 
 

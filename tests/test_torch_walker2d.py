@@ -186,8 +186,10 @@ def test_walker_model_layout():
     assert [m.name for m in model.muscles] == [
         f"{name}_{s}" for s in walker2d.SIDES for name, _, _ in
         walker2d.MUSCLES]
-    assert model.control_names()[0] == "/forceset/lumbarAct"
-    assert (model.ny, model.nx) == (38, 19)
+    assert model.control_names()[:4] == [
+        f"/forceset/{c}_actuator" for c in walker2d.RESIDUALS] + [
+        "/forceset/lumbarAct"]
+    assert (model.ny, model.nx) == (38, 22)
     names = [c.name for c in model.sphere_contacts]
     assert names == ["contactHeel_r", "contactFront_r", "contactHeel_l",
                      "contactFront_l"]
@@ -217,7 +219,7 @@ def test_walker_track_study_structure(study50):
     assert (lb[st.border_vars] == ub[st.border_vars]).all()
     cs = cs.remap_free(np.nonzero(~(np.isfinite(lb) & (lb == ub)))[0])
     assert len(cs.bv) == 0 and len(cs.bc) == 38
-    assert (cs.N, cs.nv + cs.nc) == (50, 266)
+    assert (cs.N, cs.nv + cs.nc) == (50, 278)
     assert ((guess >= lb) & (guess <= ub)).all()
     c = nlp.constraints(torch.as_tensor(guess))
     goal = study.problem.goals[[g.name for g in study.problem.goals].index(
@@ -264,3 +266,25 @@ def test_walker_blocks_against_dense_autodiff():
     H_ref = jacfwd(grad(nlp.objective))(Z[0])
     assert (J - J_ref).abs().max() <= 1e-10 * J_ref.abs().max()
     assert (H - H_ref).abs().max() <= 1e-10 * H_ref.abs().max()
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_seed_chunks_match_one_pass(monkeypatch, lanes):
+    """On a large grid the seeded tangents go through in chunks of
+    ``SEED_LANES // B`` seeds (at least ``SEED_CHUNK``); chunked, they equal
+    one pass over every seed and the dense Jacobian times the seeds."""
+    rng = np.random.default_rng(1)
+    z = torch.as_tensor(rng.standard_normal((lanes, 30)))
+    seeds = torch.as_tensor(rng.standard_normal((40, 30)))
+
+    def fn(zz):
+        return torch.sin(zz) * zz.roll(1, -1) + zz.cumsum(-1)
+
+    monkeypatch.setattr(ts, "SEED_LANES", 24)
+    chunked = ts._seeded_jvp(fn, z, seeds, 50)  # 24 (B=1) or 16 (B=3)
+    whole = ts._seeded_jvp(fn, z, seeds, 1)
+    dense = torch.stack([jacfwd(fn)(zk[None])[0, :, 0] @ seeds.T
+                         for zk in z]).transpose(1, 2)
+    assert chunked.shape == (lanes, 40, 30)
+    assert (chunked - whole).abs().max() == 0.0
+    assert (chunked - dense).abs().max() <= 1e-12 * dense.abs().max()
