@@ -10,9 +10,11 @@ script stays under 20 minutes, the bench's ``max_iter`` of 200 is cut to
 convergence is recorded, not held; phase 19 solves the same leg to
 convergence through ``Track``), ``Track``'s 2000 to 200 (phase 19), 10
 (phase 20: lane 0 converges in 8), the JAX bench's gait2d lane's 250 to
-``WALKER_MAX_ITER`` (phase 22: lane 0 converges in 90), and
-the card-against-CPU checks of phases 18 and 21 take 2 steps in place of
-3: a lane left at ``max_iter`` holds its batch to the end.
+``WALKER_MAX_ITER`` (phase 22: lane 0 converges in 90), the JAX
+package's gait2d prediction's 1000 to ``WALKER_PREDICT_MAX_ITER`` (phase
+24: its convergence is reported, not held), and
+the card-against-CPU checks of phases 18, 21, 23 and 25 take 2 steps in
+place of 3: a lane left at ``max_iter`` holds its batch to the end.
 
 Phases, one report line each:
 
@@ -166,6 +168,38 @@ its ``max_iter`` of 250 cut to ``WALKER_MAX_ITER``:
     steps (each step alone on the CPU from the card's carry within 1e-6,
     mu and the counters exact after 2 chained steps).
 
+The walker's de-novo prediction (``examples.walker2d_prediction_study(10)``:
+the JAX package's ``gait2d_prediction_study`` on the walker, a free final
+time in [0.4, 0.6], the symmetry rows, the center of mass's average speed
+held at 1.2 m/s, the cubed effort over its displacement, which sends the
+problem to the dense KKT path), warm-started from a tracking solution as
+the reference warm-starts it: phase 22's lane 0 (mesh 50) as the
+``Solution`` that ``Study.solve`` makes of it (``Study.expand``), resampled
+onto the mesh-10 grid (quintic, ``guess_from_trajectory``); without phase
+22, the walker's ``Track`` study at mesh 10, solved first from
+``make_guess`` with phase 22's options (``Track.solve`` would solve the
+tool's own goals without the symmetry rows and the GRF tracking):
+
+24. ``Study.solve(guess=solution)`` on the card, B=1, the study's options
+    (tol 1e-4, objective-only curvature) with ``max_iter``
+    ``WALKER_PREDICT_MAX_ITER``: n, m, the route (no KKT structure; K1's
+    launch counts, held at 0), iterations, final KKT error, convergence,
+    objective, final time, the center of mass's average forward speed,
+    the largest symmetry-row residual, seconds per iteration and the
+    card's peak memory (the solver reports its best iterate). Held: the
+    dense route, a finite iterate and the final time in [0.4, 0.6];
+    convergence is reported, not held (the JAX package's own prediction
+    stalls from a mesh-10 tracking start);
+25. card against CPU on phase 24's problem from its warm start, dense,
+    B=1, 2 steps, as in phase 23;
+26. the seven tracking and output goals (``tests/tracking_goals_model.py``:
+    a body on a custom joint with three rotations and a forearm, all eight
+    goals as costs at mesh 4, the model of the CPU goal test): f, its
+    gradient, the compressed J blocks and the exact Lagrangian's H blocks
+    (the acceleration goal's nested forward mode through the forward
+    dynamics under the Hessian pass) on the card against the CPU at two
+    points, within 1e-10.
+
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
 bound, at shape (a), and under a key that names shape (b) the same times
@@ -183,7 +217,8 @@ Run from the root of the repository::
 ``--phases 8`` builds K1 and runs only its checks (about a minute): the
 loop to iterate on the kernel with; ``--phases 15,16`` runs the inverse
 problems, ``--phases 17,18`` the contact leg, ``--phases 19,20,21``
-the ``Track`` tool and ``--phases 22,23`` the walker.
+the ``Track`` tool, ``--phases 22,23`` the walker and
+``--phases 22,24,25,26`` its prediction.
 """
 
 import argparse
@@ -212,7 +247,10 @@ HUGE_KKT_DIM = 10000
 # converges in 90 iterations, on the CPU as on the card; the jittered
 # lanes hold the batch to the cap)
 WALKER_B = 4
-WALKER_MAX_ITER = 110
+WALKER_MAX_ITER = 100
+# the walker's prediction (phase 24): the JAX package's max_iter of 1000
+# cut (its convergence is reported, not held)
+WALKER_PREDICT_MAX_ITER = 50
 COUNTERS = ("mu", "it", "converged", "filter_count", "acceptable_count",
             "rescue_count", "stall_count", "mu_wait")
 
@@ -756,10 +794,7 @@ def _arm_inverse(mesh_interval):
     from opensim_moco_tpu_torch.models.model import Model
     from opensim_moco_tpu_torch.tools import Inverse
 
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "tests"))
-    import inverse_arm
-
+    inverse_arm = _tests_module("inverse_arm")
     return Inverse(model=inverse_arm.build_arm(MechModelBuilder, Model,
                                                muscle),
                    kinematics=inverse_arm.kinematics(),
@@ -819,6 +854,108 @@ def _point_mass_track():
                  mesh_interval=0.025, convergence_tolerance=1e-5), times, q
 
 
+def _tests_module(name):
+    """A JAX-free helper module of ``tests/`` (the in-code models the CPU
+    tests share with this script)."""
+    import importlib
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def _expand_lane(study, tr, res, lane):
+    """Lane ``lane`` of a batched result as the ``Solution`` that
+    ``Study.solve`` makes of its one lane."""
+    return study.expand(tr, *(a[lane].cpu().numpy() for a in (
+        res.z, res.f, res.kkt_error, res.iterations, res.converged)))
+
+
+def _prediction_report(torch, tr, sol):
+    """The walker prediction's outcome: iterations, final KKT error,
+    convergence, objective, final time, the center of mass's average
+    forward speed (its x displacement over the duration, as the JAX
+    package's test reckons it), the largest residual of the half-cycle
+    symmetry rows, and whether the iterate is finite."""
+    rep = tr.rep
+    m = rep.model
+    p = m.default_params("cpu")
+    Y = torch.as_tensor(sol.states)
+    X = torch.as_tensor(sol.controls)
+    com = m.mech.mass_center(p["mech"], Y[[0, -1], :m.nq])
+    duration = float(sol.time[-1] - sol.time[0])
+    ends = [(torch.as_tensor(sol.time[k]), Y[k], X[k]) for k in (0, -1)]
+    symmetry = next(g for g in rep.goals if g.name == "symmetry")
+    return {"iterations": sol.num_iterations, "kkt_error": sol.kkt_error,
+            "converged": sol.success, "objective": sol.objective,
+            "final_time": float(sol.time[-1]),
+            "com_speed": float(com[1, 0] - com[0, 0]) / duration,
+            "max_symmetry_residual": float(
+                symmetry.values(rep, *ends, p).abs().max()),
+            "finite": bool(np.isfinite(sol.raw_iterate).all() and
+                           np.isfinite([sol.objective, sol.kkt_error]).all())}
+
+
+def _goal_derivatives(torch, tr, dev, Z, NU):
+    """f, its gradient, the compressed Jacobian blocks and the exact
+    Lagrangian's compressed Hessian blocks at the lanes ``Z`` (numpy) with
+    multipliers ``NU``, on ``dev``."""
+    from torch.func import grad
+
+    from opensim_moco_tpu_torch.config import full_precision
+    from opensim_moco_tpu_torch.solver.kkt import CompiledStructure
+    from opensim_moco_tpu_torch.solver.structured import BlockDerivatives
+
+    nlp = tr.make_nlp(dev)
+    st = nlp.structure
+    cs = CompiledStructure(st.var_blocks, st.con_blocks, st.border_vars,
+                           st.border_cons, nlp.n, nlp.m)
+    bd = BlockDerivatives(cs, nlp.constraints, dev)
+    z = torch.as_tensor(Z, device=dev)
+    nu = torch.as_tensor(NU, device=dev)
+
+    def lag_grad(zz, nn):
+        return grad(lambda q: (nlp.objective(q) +
+                               (nlp.constraints(q) * nn).sum(-1)).sum())(zz)
+
+    with full_precision(dev):
+        out = {"f": nlp.objective(z),
+               "grad_f": grad(lambda q: nlp.objective(q).sum())(z)}
+        out.update(bd.jac_blocks(z))
+        out.update(bd.hess_blocks(lag_grad, z, nu))
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _tracking_goals_parity(torch):
+    """The seven tracking and output goals of the CPU goal test
+    (``tests/tracking_goals_model.py``: a body on a three-rotation custom
+    joint and a forearm, all eight goals as costs at mesh 4) on the card
+    against the CPU: f, its gradient, the J blocks and the exact
+    Lagrangian's H blocks (the acceleration goal's nested ``jvp``s through
+    the forward dynamics under the Hessian pass), at the bounds-midpoint
+    guess and a jittered point with random multipliers (seed 0)."""
+    from opensim_moco_tpu_torch import ocp
+    from opensim_moco_tpu_torch.models import MechModelBuilder
+    from opensim_moco_tpu_torch.models.model import Model
+
+    tgm = _tests_module("tracking_goals_model")
+    tr = tgm.problem((MechModelBuilder, Model, ocp))
+    lb, ub = tr.bounds()
+    rng = np.random.default_rng(0)
+    z0 = tr.initial_guess()
+    width = np.where(np.isfinite(ub - lb), ub - lb, 1.0)
+    Z = np.stack([z0, np.clip(z0 + 0.05 * width * rng.uniform(-1, 1, tr.n),
+                              lb, ub)])
+    m = sum(size for _, size in tr.constraint_group_info())
+    NU = rng.standard_normal((2, m))
+    card, cpu = (_goal_derivatives(torch, tr, dev, Z, NU)
+                 for dev in ("cuda", "cpu"))
+    return {"n": tr.n, "m": m, "goals": [g.name for g in tr.rep.goals],
+            "max_lane_rel_err": {k: _lane_rel_err(card[k], cpu[k])
+                                 for k in cpu}}
+
+
 def _check_lanes(name, stats):
     if stats["converged"] == 0:
         _fail(f"{name}: no lane converged")
@@ -833,7 +970,7 @@ def main():
                     "JSON file")
     ap.add_argument("--phases",
                     default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19,20,21,22,23",
+                    "19,20,21,22,23,24,25,26",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -848,10 +985,11 @@ def main():
         contact_leg_study, contact_leg_track_study, coupler_pendulum_study,
         double_pendulum_swingup_study, hanging_muscle_inverse,
         hanging_muscle_study, kirk_min_effort_study, oscillator_mass_study,
-        walker2d_track_study)
+        walker2d_prediction_study, walker2d_track_study)
     from opensim_moco_tpu_torch.ops import _build
     from opensim_moco_tpu_torch.ops.btb import LAUNCHES
-    from opensim_moco_tpu_torch.parallel import batch_guesses
+    from opensim_moco_tpu_torch.parallel import (batch_guesses,
+                                                 make_batched_solver)
     from opensim_moco_tpu_torch.solver.ipm import IPMOptions
 
     card = _card_line()
@@ -1333,7 +1471,8 @@ def main():
         phase_start[19] = time.perf_counter()
         track, times, q_ref = _point_mass_track()
         t0 = time.perf_counter()
-        sol = track.solve()
+        # unsealed: the report reads the states even if it did not converge
+        sol = track.solve().unseal()
         pm = {"success": sol.success, "iterations": sol.num_iterations,
               "wall_s": time.perf_counter() - t0,
               "max_q_err": float(np.abs(sol.state("/jointset/j/q/value") -
@@ -1395,17 +1534,18 @@ def main():
             _fail("phase 21: card and CPU iterates disagree")
 
     # ---- phases 22 and 23: the walker's Track lane
+    # the JAX bench's gait2d lane's options (bench.py:105-110), which solve
+    # the Track study this walker stands in for
+    opts22 = IPMOptions(tol=1e-4, max_iter=WALKER_MAX_ITER, mu_init=1e-2,
+                        max_rescues=100, kappa_eps=100.0,
+                        acceptable_tol_factor=30.0, acceptable_iter=5,
+                        max_ls=6, kkt="structured",
+                        hessian_approximation="objective-only")
+    res22 = None
     if phases & {22, 23}:
         st22, g22 = walker2d_track_study(50)
         tr22 = st22.transcription()
         Z22 = _track_starts(tr22, g22, WALKER_B)
-        # the JAX bench's gait2d lane's options (bench.py:105-110), which
-        # solve the Track study this walker stands in for
-        opts22 = IPMOptions(tol=1e-4, max_iter=WALKER_MAX_ITER,
-                            mu_init=1e-2, max_rescues=100, kappa_eps=100.0,
-                            acceptable_tol_factor=30.0, acceptable_iter=5,
-                            max_ls=6, kkt="structured",
-                            hessian_approximation="objective-only")
     if 22 in phases:
         phase_start[22] = time.perf_counter()
         res22, stats22 = _solve_lane(torch, tr22, opts22, g22, Z22, dev,
@@ -1443,6 +1583,81 @@ def main():
         if max(par23["stepwise_max_lane_rel_err"].values()) > ITERATE_RTOL \
                 or not all(par23["exact"].values()):
             _fail("phase 23: card and CPU iterates disagree")
+
+    # ---- phases 24 and 25: the walker's de-novo prediction
+    if phases & {24, 25}:
+        if res22 is not None:
+            warm_src = "phase 22 lane 0 (Track, mesh 50)"
+            warm = _expand_lane(st22, tr22, res22, 0)
+        else:
+            warm_src = "Track study, mesh 10, phase 22's options"
+            st10, g10 = walker2d_track_study(10)
+            tr10 = st10.transcription()
+            res10 = make_batched_solver(tr10, opts22, dev,
+                                        scale_z0=g10)(g10[None])
+            warm = _expand_lane(st10, tr10, res10, 0)
+        # a tracking solution that did not converge is still a warm start
+        warm.unseal()
+        st24, _ = walker2d_prediction_study(
+            10, max_iterations=WALKER_PREDICT_MAX_ITER)
+        tr24 = st24.transcription()
+        z24 = tr24.guess_from_trajectory(warm)
+    if 24 in phases:
+        phase_start[24] = time.perf_counter()
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sol24 = st24.solve(guess=warm)
+        torch.cuda.synchronize()
+        stats24 = {"warm_start": warm_src,
+                   "warm_start_converged": bool(warm.success),
+                   "warm_start_iterations": warm.num_iterations,
+                   "n": tr24.n,
+                   "m": sum(size for _, size in tr24.constraint_group_info()),
+                   "kkt_structure": None if tr24.kkt_structure() is None
+                   else "present", "launches": dict(LAUNCHES),
+                   "wall_s": time.perf_counter() - t0,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   **_prediction_report(torch, tr24, sol24)}
+        stats24["s_per_iteration"] = stats24["wall_s"] / max(
+            1, stats24["iterations"])
+        print(f"phase 24 walker prediction, dense (mesh 10, B=1, max_iter "
+              f"{WALKER_PREDICT_MAX_ITER}, f64, cuda; Study.solve from a "
+              "tracking solution): " + json.dumps(stats24), flush=True)
+        out["walker_prediction"] = stats24
+        if stats24["kkt_structure"] is not None or \
+                any(stats24["launches"].values()):
+            _fail("phase 24: the prediction left the dense KKT path")
+        if not stats24["finite"]:
+            _fail("phase 24: non-finite solution")
+        slack = st24.ipm_options.bound_relax
+        if not 0.4 - slack <= stats24["final_time"] <= 0.6 + slack:
+            _fail(f"phase 24: final time {stats24['final_time']} outside "
+                  "[0.4, 0.6]")
+    if 25 in phases:
+        phase_start[25] = time.perf_counter()
+        par25 = _iterate_parity(torch, tr24, st24.ipm_options, z24,
+                                z24[None], COUNTERS, stepwise=True, steps=2)
+        print("phase 25 iterate parity cuda vs cpu, walker prediction, 2 "
+              "steps, dense: " + json.dumps(par25), flush=True)
+        out["iterate_parity_walker_prediction"] = par25
+        if max(par25["stepwise_max_lane_rel_err"].values()) > ITERATE_RTOL \
+                or not all(par25["exact"].values()):
+            _fail("phase 25: card and CPU iterates disagree")
+
+    # ---- phase 26: the tracking and output goals on the card
+    if 26 in phases:
+        phase_start[26] = time.perf_counter()
+        res26 = _tracking_goals_parity(torch)
+        print("phase 26 tracking goals cuda vs cpu (f, grad f, J and "
+              "exact-Lagrangian H blocks, 2 lanes): " + json.dumps(res26),
+              flush=True)
+        out["tracking_goals"] = res26
+        if max(res26["max_lane_rel_err"].values()) > KERNEL_RTOL:
+            _fail("phase 26: the goals' derivatives on the card and the CPU "
+                  "disagree")
 
     # the K1 checks of phases 10, 13, 15, 16, 17, 19, 20 and 22 join the
     # kernels line by shape

@@ -6,11 +6,12 @@ tests (the coupler-constrained double pendulum of ``test_constraints.py``
 and the oscillator mass of ``test_parameters.py``) and the planar contact
 leg of ``example_models/contact_leg.py``, directly and through the
 ``Track`` tool, and the planar walker of ``example_models/walker2d.py``
-through ``Track`` with gait2d's symmetry rows and bounds; each returns a
-ready-to-solve :class:`~opensim_moco_tpu_torch.ocp.study.Study`, but
+through ``Track`` with gait2d's symmetry rows and bounds, and in gait2d's
+de-novo prediction; each returns a ready-to-solve
+:class:`~opensim_moco_tpu_torch.ocp.study.Study`, but
 ``hanging_muscle_inverse``, which returns an ``Inverse`` tool, and
-``contact_leg_track_study`` and ``walker2d_track_study``, which return
-the study and its guess.
+``contact_leg_track_study``, ``walker2d_track_study`` and
+``walker2d_prediction_study``, which return the study and its guess.
 """
 
 from __future__ import annotations
@@ -446,3 +447,74 @@ def walker2d_track_study(num_mesh_intervals=50):
         projection="plane", projection_vector=(0.0, 0.0, 1.0)))
     _gait2d_state_bounds(prob)
     return study, track.make_guess(study)
+
+
+def walker2d_reference_trajectory():
+    """The walker's reference motion over the tracked half cycle [0, T]
+    (``example_models/walker2d.py``) as a
+    :class:`~opensim_moco_tpu_torch.utils.trajectory.Trajectory`: the
+    coordinates and their finite-difference speeds, no controls. A warm
+    start for ``walker2d_prediction_study`` that needs no tracking
+    solve."""
+    from .example_models import walker2d
+    from .utils.trajectory import Trajectory
+
+    t, q = walker2d.reference()
+    keep = (t >= -1e-12) & (t <= walker2d.HALF_CYCLE + 1e-12)
+    t, q = t[keep], q[keep]
+    paths = [walker2d.coordinate_path(c) for c in walker2d.COORDS]
+    return Trajectory(
+        time=t, state_names=[f"{p}/value" for p in paths] +
+        [f"{p}/speed" for p in paths],
+        states=np.concatenate([q, np.gradient(q, t, axis=0)], axis=1),
+        control_names=[], controls=np.zeros((len(t), 0)))
+
+
+def walker2d_prediction_study(num_mesh_intervals=10, desired_speed=1.2,
+                              effort_weight=10.0, tol=1e-4,
+                              max_iterations=1000, guess=None):
+    """De-novo gait prediction on the planar walker of
+    ``example_models/walker2d.py``, step for step as the JAX package's
+    ``gait2d_prediction_study`` (``examples.py:291``, the reference's
+    example2DWalking gaitPrediction), which reads gait2d's files: a free
+    final time in [0.4, 0.6], the half-cycle symmetry rows, the average
+    speed of the center of mass held at ``desired_speed`` (an endpoint
+    constraint), the cubed control effort over the center of mass's
+    displacement at ``effort_weight`` (no tracking data), gait2d's
+    coordinate bounds; Hermite-Simpson, ``objective-only`` curvature.
+    Dividing by the displacement couples every time block with the
+    endpoints, so the problem takes the dense KKT path.
+
+    The walker's three pelvis residuals and ``lumbarAct``, which gait2d
+    lacks, are in the effort goal with weight 1 per control, as in
+    ``walker2d_track_study``'s effort goal (every control at weight 1).
+
+    ``guess`` (a ``Trajectory``, such as a tracking ``Solution``, or a
+    flat iterate) is passed on: a ``Trajectory`` goes through
+    ``Transcription.guess_from_trajectory``. The reference warm-starts
+    from the tracking solution (example2DWalking.cpp:314-315): the cold
+    bounds-midpoint guess has no displacement. Returns ``(study,
+    guess)``, the guess None when none is given."""
+    from .example_models import walker2d
+    from .ocp import AverageSpeedGoal
+    from .utils.splines import CubicSpline
+
+    model = walker2d.build_walker(MechModelBuilder, Model, CubicSpline, dgf)
+    prob = Problem(model)
+    prob.set_time_bounds(0, (0.4, 0.6))
+    prob.add_goal(_gait2d_symmetry_goal(model))
+    prob.add_goal(AverageSpeedGoal(name="speed", use_com=True,
+                                   desired_speed=desired_speed,
+                                   mode="endpoint_constraint"))
+    prob.add_goal(ControlGoal(name="effort", weight=effort_weight,
+                              exponent=3, divide_by_displacement=True))
+    _gait2d_state_bounds(prob)
+
+    study = Study(prob)
+    study.set_solver_options(transcription_scheme="hermite-simpson",
+                             num_mesh_intervals=num_mesh_intervals)
+    study.set_ipm_options(tol=tol, max_iter=max_iterations,
+                          hessian_approximation="objective-only")
+    if guess is not None and hasattr(guess, "state_names"):
+        guess = study.transcription().guess_from_trajectory(guess)
+    return study, guess

@@ -1,8 +1,11 @@
-from .goals import (ContactTrackingGoal, ControlGoal, CustomGoal,
-                    FinalTimeGoal, Goal, InitialActivationGoal,
-                    InitialForceEquilibriumGoal,
-                    InitialVelocityEquilibriumDGFGoal, MarkerTrackingGoal,
-                    PeriodicityGoal, StateTrackingGoal, SumSquaredStateGoal)
+from .goals import (AccelerationTrackingGoal, AngularVelocityTrackingGoal,
+                    AverageSpeedGoal, ContactTrackingGoal, ControlGoal,
+                    ControlTrackingGoal, CustomGoal, FinalTimeGoal, Goal,
+                    InitialActivationGoal, InitialForceEquilibriumGoal,
+                    InitialVelocityEquilibriumDGFGoal, MarkerFinalGoal,
+                    MarkerTrackingGoal, OrientationTrackingGoal, OutputGoal,
+                    PeriodicityGoal, StateTrackingGoal, SumSquaredStateGoal,
+                    TranslationTrackingGoal)
 from .problem import (ParameterSpec, PathConstraintSpec, Problem,
                       ProblemRep, VariableInfo)
 from .study import Solution, Study
@@ -11,7 +14,10 @@ __all__ = [
     "Goal", "ControlGoal", "CustomGoal", "FinalTimeGoal", "InitialActivationGoal",
     "InitialForceEquilibriumGoal", "InitialVelocityEquilibriumDGFGoal",
     "SumSquaredStateGoal", "StateTrackingGoal", "PeriodicityGoal",
-    "ContactTrackingGoal", "MarkerTrackingGoal",
+    "ContactTrackingGoal", "MarkerTrackingGoal", "AverageSpeedGoal",
+    "MarkerFinalGoal", "ControlTrackingGoal", "TranslationTrackingGoal",
+    "OrientationTrackingGoal", "AngularVelocityTrackingGoal", "OutputGoal",
+    "AccelerationTrackingGoal",
     "ParameterSpec", "PathConstraintSpec", "Problem", "ProblemRep",
     "VariableInfo", "Solution", "Study",
 ]

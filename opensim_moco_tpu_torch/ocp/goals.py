@@ -7,13 +7,12 @@ combines endpoint tuples ``(t, y, x, lam, deriv)`` (leading dims only)
 with the quadrature of the integrand. A goal is a cost term or, in
 ``"endpoint_constraint"`` mode, a set of constraint rows (``values``).
 
-Reference trajectories (``StateTrackingGoal``, ``MarkerTrackingGoal``,
-``ContactTrackingGoal``) are interpolated linearly, clamped at the ends
-(``jnp.interp`` in the JAX package), from tables moved to the device
-once per (device, dtype).
+Reference trajectories (the tracking goals and ``ContactTrackingGoal``)
+are interpolated linearly, clamped at the ends (``jnp.interp`` in the JAX
+package), from tables moved to the device once per (device, dtype).
 
-The remaining goals of the JAX package are not ported yet (ROADMAP.md,
-queue 1).
+Of the JAX package's goals only ``JointReactionGoal`` is not ported yet:
+it needs the joint reactions (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -26,7 +25,8 @@ import numpy as np
 import torch
 
 from ..models import muscle as dgf
-from ..models.mech import StationSpec
+from ..models.mech import StationSpec, _const_vec
+from ..models.spatial import mv
 from ..utils.splines import _Coefficients, _rows
 
 
@@ -64,6 +64,19 @@ def _tables(goal, reference):
         goal._tables = {key: _LinearTable(*ref)
                         for key, ref in reference.items()}
     return goal._tables
+
+
+def _com_displacement(rep, initial, final, p):
+    """The smoothed norm sqrt(|com(qf) - com(q0)|^2 + 1e-16) of the
+    system's center-of-mass displacement between the endpoints: finite
+    gradient at zero displacement (the cold bounds-midpoint guess has
+    q0 == qf), where the norm's own is NaN. The mechanical parameters are
+    ``p["mech"]`` where ``p`` holds them (JAX ``ocp/goals.py:285``)."""
+    mech = rep.model.mech
+    mech_p = p["mech"] if isinstance(p, dict) and "mech" in p else p
+    diff = (mech.mass_center(mech_p, final[1][..., :mech.nq]) -
+            mech.mass_center(mech_p, initial[1][..., :mech.nq]))
+    return torch.sqrt((diff * diff).sum(-1) + 1e-16)
 
 
 @dataclasses.dataclass
@@ -108,17 +121,22 @@ class Goal:
 @dataclasses.dataclass
 class ControlGoal(Goal):
     """Sum_i w_i |x_i|^p integrated over time (MocoControlGoal). Weights by
-    control name or regex pattern."""
+    control name or regex pattern. With ``divide_by_displacement`` the
+    integral (over the duration if asked) is divided by the norm of the
+    system's center-of-mass displacement between the endpoints: effort
+    over distance, as predictive gait problems pose it (JAX
+    ``ocp/goals.py:90``)."""
     name: str = "control_effort"
     exponent: int = 2
     control_weights: dict = dataclasses.field(default_factory=dict)
     pattern_weights: dict = dataclasses.field(default_factory=dict)
     divide_by_displacement: bool = False
 
-    def __post_init__(self):
+    def value(self, rep, initial, final, integral, p):
+        val = super().value(rep, initial, final, integral, p)
         if self.divide_by_displacement:
-            raise NotImplementedError("ControlGoal.divide_by_displacement is "
-                                      "not ported yet (ROADMAP.md, queue 1)")
+            val = val / _com_displacement(rep, initial, final, p)
+        return val
 
     def hessian_block_local(self) -> bool:
         # dividing the integral by a nonlinear function of the endpoint
@@ -456,3 +474,211 @@ class CustomGoal(Goal):
         if vals.dim() == initial[0].dim():
             vals = vals.unsqueeze(-1)
         return vals
+
+
+@dataclasses.dataclass
+class AverageSpeedGoal(Goal):
+    """Average speed over the phase minus ``desired_speed``
+    (MocoAverageSpeedGoal; JAX ``ocp/goals.py:267``): with ``use_com``
+    the speed is the norm of the center-of-mass displacement over the
+    duration (the reference's semantics), else the displacement of
+    coordinate ``coord`` over the duration. One constraint row in its
+    default ``"endpoint_constraint"`` mode; as a cost its square, which
+    couples the first and last grid points, so the problem then takes
+    the dense KKT path."""
+    name: str = "average_speed"
+    mode: str = "endpoint_constraint"
+    coord: int = 0
+    desired_speed: float = 0.0
+    use_com: bool = False
+
+    def values(self, rep, initial, final, p):
+        t0, y0 = initial[0], initial[1]
+        tf, yf = final[0], final[1]
+        if self.use_com:
+            avg = _com_displacement(rep, initial, final, p) / (tf - t0)
+        else:
+            avg = (yf[..., self.coord] - y0[..., self.coord]) / (tf - t0)
+        return (avg - self.desired_speed).unsqueeze(-1)
+
+    def value(self, rep, initial, final, integral, p):
+        return self.values(rep, initial, final, p)[..., 0] ** 2
+
+
+@dataclasses.dataclass
+class MarkerFinalGoal(Goal):
+    """Squared distance (or, without ``squared``, the smoothed distance
+    sqrt(d^2 + 1e-16)) of a point fixed in ``body`` from ``target`` at the
+    final time (MocoMarkerFinalGoal; JAX ``ocp/goals.py:181``)."""
+    name: str = "marker_final"
+    _VALUE_BLOCK_LOCAL = True  # value reads the final grid point only
+    body: int = 0
+    location: tuple = (0.0, 0.0, 0.0)
+    target: tuple = (0.0, 0.0, 0.0)
+    squared: bool = True
+
+    def value(self, rep, initial, final, integral, p):
+        yf = final[1]
+        m = rep.model
+        pos = m.mech.station_position(p["mech"], yf[..., :m.nq], self.body,
+                                      self.location)
+        err = pos - _const_vec(self.target, pos)
+        d2 = (err * err).sum(-1)
+        return d2 if self.squared else torch.sqrt(d2 + 1e-16)
+
+
+@dataclasses.dataclass
+class ControlTrackingGoal(Goal):
+    """Weighted squared tracking of reference control trajectories
+    (MocoControlTrackingGoal; JAX ``ocp/goals.py:355``). ``reference``
+    maps a control name to (times (K,), values (K,))."""
+    name: str = "control_tracking"
+    reference: dict = dataclasses.field(default_factory=dict)
+    control_weights: dict = dataclasses.field(default_factory=dict)
+    _tables: dict | None = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        tables = _tables(self, self.reference)
+        total = torch.zeros_like(t)
+        for name in self.reference:
+            i = rep.control_names.index(name)
+            w = self.control_weights.get(name, 1.0)
+            total = total + w * (x[..., i] - tables[name](t)) ** 2
+        return total
+
+
+@dataclasses.dataclass
+class TranslationTrackingGoal(Goal):
+    """Squared error of body origins in the world against their reference
+    positions (MocoTranslationTrackingGoal; JAX ``ocp/goals.py:375``).
+    ``reference`` maps a body index to (times (K,), positions (K, 3))."""
+    name: str = "translation_tracking"
+    reference: dict = dataclasses.field(default_factory=dict)
+    _tables: dict | None = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        m = rep.model
+        frames = m.mech.frames(p["mech"], y[..., :m.nq])
+        tables = _tables(self, self.reference)
+        total = torch.zeros_like(t)
+        for body in self.reference:
+            err = frames[body][1] - tables[body](t)
+            total = total + (err * err).sum(-1)
+        return total
+
+
+@dataclasses.dataclass
+class OrientationTrackingGoal(Goal):
+    """Frobenius error of body rotation matrices against their references
+    (MocoOrientationTrackingGoal measures a quaternion distance; JAX
+    ``ocp/goals.py:398``). ``reference`` maps a body index to (times (K,),
+    rotation matrices (K, 3, 3), world to body), interpolated entry by
+    entry."""
+    name: str = "orientation_tracking"
+    reference: dict = dataclasses.field(default_factory=dict)
+    _tables: dict | None = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        m = rep.model
+        frames = m.mech.frames(p["mech"], y[..., :m.nq])
+        if self._tables is None:
+            self._tables = {
+                body: _LinearTable(times, np.reshape(mats, (len(mats), 9)))
+                for body, (times, mats) in self.reference.items()}
+        total = torch.zeros_like(t)
+        for body in self.reference:
+            ref = self._tables[body](t).reshape(t.shape + (3, 3))
+            err = frames[body][0] - ref
+            total = total + (err * err).sum((-2, -1))
+        return total
+
+
+@dataclasses.dataclass
+class AngularVelocityTrackingGoal(Goal):
+    """Squared error of body angular velocities in the world against their
+    references (MocoAngularVelocityTrackingGoal; JAX
+    ``ocp/goals.py:425``). ``reference`` maps a body index to (times (K,),
+    angular velocities (K, 3)). With A the world-to-body rotation and
+    Adot its rate (the ``jvp`` of the poses along u), W = Adot A^T is
+    -skew(omega) in body coordinates, and omega_world = A^T omega."""
+    name: str = "angular_velocity_tracking"
+    reference: dict = dataclasses.field(default_factory=dict)
+    _tables: dict | None = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        m = rep.model
+        bodies = list(self.reference)
+
+        def rotations(qq):
+            frames = m.mech.frames(p["mech"], qq)
+            return tuple(frames[b][0] for b in bodies)
+
+        rots, rates = torch.func.jvp(rotations, (y[..., :m.nq],),
+                                     (y[..., m.nq:2 * m.nq],))
+        tables = _tables(self, self.reference)
+        total = torch.zeros_like(t)
+        for body, A, Adot in zip(bodies, rots, rates):
+            W = Adot @ A.transpose(-1, -2)
+            omega = torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]],
+                                -1)
+            err = mv(A.transpose(-1, -2), -omega) - tables[body](t)
+            total = total + (err * err).sum(-1)
+        return total
+
+
+@dataclasses.dataclass
+class OutputGoal(Goal):
+    """Minimize any model quantity given as a closure (MocoOutputGoal; JAX
+    ``ocp/goals.py:460``): ``output_fn(rep, t, y, x, lam, p)`` takes the
+    port's grid tensors (``t`` (..., G), ``y`` (..., G, ny), ...) and
+    returns (..., G); the integrand is its ``exponent``-th power."""
+    name: str = "output"
+    output_fn: Callable | None = None
+    exponent: int = 1
+
+    def integrand(self, rep, t, y, x, lam, p):
+        v = self.output_fn(rep, t, y, x, lam, p)
+        return v ** self.exponent if self.exponent != 1 else v
+
+
+@dataclasses.dataclass
+class AccelerationTrackingGoal(Goal):
+    """Squared error of body-origin linear accelerations in the world
+    against their references (MocoAccelerationTrackingGoal; JAX
+    ``ocp/goals.py:518``). ``reference`` maps a body index to (times (K,),
+    accelerations (K, 3)). The accelerations come from explicit forward
+    dynamics at each grid point (udot), as the second derivative of the
+    origin along (u, udot): two nested ``jvp``s. ``gravity_offset``
+    subtracts gravity, as an accelerometer reads."""
+    name: str = "acceleration_tracking"
+    reference: dict = dataclasses.field(default_factory=dict)
+    gravity_offset: bool = False
+    _tables: dict | None = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def integrand(self, rep, t, y, x, lam, p):
+        m = rep.model
+        q, u, z = m.split_state(y)
+        udot = m.multibody_explicit(p, t, q, u, z, x, lam)
+        bodies = list(self.reference)
+
+        def origins(qq):
+            frames = m.mech.frames(p["mech"], qq)
+            return torch.stack([frames[b][1] for b in bodies], -2)
+
+        def velocities(qq, uu):
+            return torch.func.jvp(origins, (qq,), (uu,))[1]
+
+        acc = torch.func.jvp(velocities, (q, u), (u, udot))[1]
+        if self.gravity_offset:
+            acc = acc - p["mech"]["gravity"]
+        tables = _tables(self, self.reference)
+        total = torch.zeros_like(t)
+        for k, body in enumerate(bodies):
+            err = acc[..., k, :] - tables[body](t)
+            total = total + (err * err).sum(-1)
+        return total

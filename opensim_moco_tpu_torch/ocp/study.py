@@ -4,7 +4,8 @@ Counterpart of ``opensim_moco_tpu.ocp.study.Study`` on its non-chunked
 path: ``solve`` transcribes the problem, builds the solver on a device
 (the card unless the caller asks for the CPU), scales the NLP at the
 initial guess, runs one lane and expands the flat solution into a
-:class:`Solution` of numpy arrays.
+:class:`~opensim_moco_tpu_torch.utils.trajectory.Solution` of numpy
+arrays, sealed when the solve did not converge.
 """
 
 from __future__ import annotations
@@ -19,42 +20,8 @@ import torch
 from ..config import resolve_device
 from ..solver.ipm import IPMOptions, make_solver
 from ..transcribe.transcription import SolverOptions, Transcription
+from ..utils.trajectory import Solution
 from .problem import Problem
-
-
-@dataclasses.dataclass
-class Solution:
-    """Solver output on the transcription grid (MocoSolution analogue)."""
-    time: np.ndarray
-    state_names: list
-    states: np.ndarray  # (G, ny)
-    control_names: list
-    controls: np.ndarray  # (G, nx)
-    success: bool
-    status: str
-    objective: float
-    num_iterations: int
-    kkt_error: float
-    solver_duration: float
-    raw_iterate: np.ndarray
-    multiplier_names: list = dataclasses.field(default_factory=list)
-    multipliers: np.ndarray | None = None  # (G, nlam)
-    parameter_names: list = dataclasses.field(default_factory=list)
-    parameters: np.ndarray | None = None  # (np,)
-
-    @property
-    def initial_time(self):
-        return float(self.time[0])
-
-    @property
-    def final_time(self):
-        return float(self.time[-1])
-
-    def state(self, name):
-        return self.states[:, self.state_names.index(name)]
-
-    def control(self, name):
-        return self.controls[:, self.control_names.index(name)]
 
 
 class Study:
@@ -75,12 +42,20 @@ class Study:
 
     def solve(self, device="cuda", dtype=torch.float64,
               guess=None) -> Solution:
-        """Solve from ``guess`` (flat numpy iterate; default: the
-        bounds-midpoint guess) on ``device`` (the card unless the caller
-        asks for the CPU)."""
+        """Solve from ``guess`` on ``device`` (the card unless the caller
+        asks for the CPU). ``guess`` is a flat numpy iterate, a
+        :class:`~opensim_moco_tpu_torch.utils.trajectory.Trajectory` (or
+        ``Solution``), resampled onto this grid by
+        ``Transcription.guess_from_trajectory``, or None for the
+        bounds-midpoint guess."""
         dev = resolve_device(device)
         tr = self.transcription()
-        z0 = tr.initial_guess() if guess is None else np.asarray(guess)
+        if guess is None:
+            z0 = tr.initial_guess()
+        elif hasattr(guess, "state_names"):
+            z0 = tr.guess_from_trajectory(guess)
+        else:
+            z0 = np.asarray(guess)
         start = time.perf_counter()
         solve = make_solver(tr.make_nlp(dev, dtype), self.ipm_options,
                             scale_z0=z0, device=dev, dtype=dtype)
@@ -88,23 +63,38 @@ class Study:
         z, f, kkt, it, conv = (t[0].cpu().numpy() for t in
                                (res.z, res.f, res.kkt_error, res.iterations,
                                 res.converged))
-        duration = time.perf_counter() - start
+        return self.expand(tr, z, f, kkt, it, conv,
+                           time.perf_counter() - start)
+
+    def expand(self, tr, z, f, kkt_error, iterations, converged,
+               duration=float("nan")) -> Solution:
+        """The :class:`Solution` of a flat iterate ``z`` (numpy) of ``tr``
+        with the solver's statistics, sealed unless ``converged`` (JAX
+        ``ocp/study.py:240``). Derivative columns take the reference's
+        names (``<coordinate>/accel``, then
+        ``/forceset/<muscle>/implicitderiv_normalized_tendon_force``), so
+        that a solution goes back through ``guess_from_trajectory``."""
         rep = tr.rep
-        t0, tf, Y, X, L, _, _, _, _, theta = tr.unpack(z)
-        converged = bool(conv)
+        t0, tf, Y, X, L, D, _, _, _, theta = tr.unpack(np.asarray(z))
+        converged = bool(converged)
         self._check_constraint_jacobian_rank(tr, Y)
-        return Solution(
+        sol = Solution(
             time=t0 + (tf - t0) * np.asarray(tr.taus),
             state_names=list(rep.state_names), states=Y,
             control_names=list(rep.control_names), controls=X,
             multiplier_names=rep.model.multiplier_names(), multipliers=L,
+            derivative_names=tr.derivative_names(), derivatives=D,
             parameter_names=[p.name for p in rep.parameters],
             parameters=theta,
             success=converged,
-            status=("converged" if converged
-                    else f"max iterations or stall (kkt={float(kkt):.2e})"),
-            objective=float(f), num_iterations=int(it),
-            kkt_error=float(kkt), solver_duration=duration, raw_iterate=z)
+            status=("converged" if converged else
+                    f"max iterations or stall (kkt={float(kkt_error):.2e})"),
+            objective=float(f), num_iterations=int(iterations),
+            kkt_error=float(kkt_error), solver_duration=duration,
+            raw_iterate=np.asarray(z))
+        if not converged:
+            sol.seal()
+        return sol
 
     def _check_constraint_jacobian_rank(self, tr, Y):
         """Post-solve rank check of the kinematic-constraint Jacobian (JAX

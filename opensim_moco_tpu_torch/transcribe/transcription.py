@@ -668,6 +668,50 @@ class Transcription:
                    lb=lb, ub=ub, structure=self.kkt_structure())
 
     # --------------------------------------------------------------- guess
+    def derivative_names(self):
+        """Names of the derivative columns, in the layout's order: with
+        implicit multibody dynamics ``<coordinate>/accel`` per coordinate,
+        then ``/forceset/<muscle>/implicitderiv_normalized_tendon_force``
+        per implicit tendon (the reference's names, JAX
+        ``ocp/study.py:254-263``)."""
+        model = self.rep.model
+        names = ([f"{c}/accel" for c in model.coordinate_paths()]
+                 if self.implicit_mb else [])
+        return names + [f"/forceset/{m}/implicitderiv_normalized_tendon_force"
+                        for m in model._implicit_aux]
+
+    def guess_from_trajectory(self, traj, dtype=np.float64):
+        """Flat numpy iterate from a ``Trajectory``/``Solution`` (the
+        reference's guess-file warm start; JAX
+        ``transcription.py:724``): the bounds-midpoint guess with the
+        trajectory's time window, and its states, controls, multipliers
+        and derivative columns, resampled onto this grid
+        (``Trajectory.resample``), copied in by name."""
+        z = np.array(self.initial_guess(dtype=dtype))
+        t0, tf = traj.initial_time, traj.final_time
+        z[0], z[1] = t0, tf
+        res = traj.resample(t0 + (tf - t0) * np.asarray(self.taus))
+        o = self.offsets
+        Y = z[o["states"][0]:o["states"][1]].reshape(self.G, self.ny)
+        for i, n in enumerate(self.rep.state_names):
+            if n in res.state_names:
+                Y[:, i] = res.state(n)
+        X = z[o["controls"][0]:o["controls"][1]].reshape(self.G, self.nx)
+        for i, n in enumerate(self.rep.control_names):
+            if n in res.control_names:
+                X[:, i] = res.control(n)
+        if self.nlam and res.multipliers is not None and \
+                res.multipliers.shape[1] == self.nlam:
+            z[o["multipliers"][0]:o["multipliers"][1]] = \
+                res.multipliers.ravel()
+        if self.nderiv and res.derivatives is not None:
+            D = z[o["derivs"][0]:o["derivs"][1]].reshape(self.G, self.nderiv)
+            names = list(res.derivative_names)
+            for i, n in enumerate(self.derivative_names()):
+                if n in names:
+                    D[:, i] = res.derivatives[:, names.index(n)]
+        return z
+
     def initial_guess(self, dtype=np.float64):
         """Bounds-midpoint guess: midpoint where both bounds are finite,
         else the finite bound, else zero (numpy)."""

@@ -1,12 +1,13 @@
 """Interpolating splines evaluated on tensors.
 
 Counterpart of ``opensim_moco_tpu.utils.splines``: the natural cubic
-spline (``CubicSpline``, JAX ``utils/splines.py:17``) and the natural
-quintic spline of the reference's PositionMotion (``QuinticSpline``, JAX
-``:192``). Coefficients are computed once with numpy/scipy, by the same
-routines as in the JAX package; evaluation is ``torch.searchsorted`` and
-Horner's rule on a time tensor of any leading shape, with analytic first
-and second derivatives. Everything is differentiable in ``t`` under
+spline (``CubicSpline``, JAX ``utils/splines.py:17``), the natural quintic
+spline of the reference's PositionMotion (``QuinticSpline``, JAX
+``:192``) and the numpy resampler of trajectories (``quintic_resample``,
+JAX ``:161``). Coefficients are computed once with numpy/scipy, by the
+same routines as in the JAX package; evaluation is ``torch.searchsorted``
+and Horner's rule on a time tensor of any leading shape, with analytic
+first and second derivatives. Everything is differentiable in ``t`` under
 ``torch.func`` transforms (``jvp``, ``vmap``), as the transcription needs
 when the time window is free. Times outside the data range extrapolate
 the end segments, as in the JAX package.
@@ -161,6 +162,34 @@ def _natural_quintic_coeffs(x, Y):
     for m in range(C.shape[0]):
         C[m] /= h_mean ** (k - m)
     return x0 + h_mean * xb, C
+
+
+def quintic_resample(x, Y, new_x):
+    """Resample a table ``Y`` (n, d) from grid ``x`` onto ``new_x`` with
+    the natural quintic interpolant, in numpy (a copy of JAX
+    ``utils/splines.py:161``; the reference's GCVSplineSet of degree
+    min(5, n - 1) in MocoTrajectory::resample). Tables of 5 samples or
+    fewer take scipy's interpolating spline of degree min(3, n - 1).
+    Times outside the data range are clamped to it."""
+    from scipy.interpolate import PPoly, make_interp_spline
+
+    x = np.asarray(x, dtype=np.float64)
+    Y = np.asarray(Y, dtype=np.float64)
+    new_x = np.asarray(new_x, dtype=np.float64)
+    if Y.ndim == 1:
+        Y = Y[:, None]
+    if Y.shape[1] == 0:
+        return np.zeros((len(new_x), 0))
+    if len(x) == 1:
+        return np.repeat(Y, len(new_x), axis=0)
+    tq = np.clip(new_x, x[0], x[-1])
+    if len(x) > 5:
+        xb, C = _natural_quintic_coeffs(x, Y)
+        return np.stack([PPoly(C[:, :, j], xb)(tq)
+                         for j in range(Y.shape[1])], axis=1)
+    k = max(1, min(3, len(x) - 1))
+    return np.stack([make_interp_spline(x, Y[:, j], k=k)(tq)
+                     for j in range(Y.shape[1])], axis=1)
 
 
 class QuinticSpline:

@@ -7,9 +7,13 @@ curvature, as ``chip_smoke.py`` phase 17 solves it; ``--lane
 contact_leg_track``: ``examples.contact_leg_track_study(50)`` from
 ``chip_smoke.py`` phase 19's starts, scaled at the tool's guess, with
 objective-only curvature; ``--lane walker_track``: the same for
-``examples.walker2d_track_study(50)``, phase 22's lane) and each ``kkt``
-mode ("dense", "auto", "structured"), on one CUDA card (``--batch``
-lanes in place of 32):
+``examples.walker2d_track_study(50)``, phase 22's lane; ``--lane
+walker_predict``: ``examples.walker2d_prediction_study(10)`` with its own
+IPM options, every lane warm-started from the walker's reference motion
+(``examples.walker2d_reference_trajectory``), as ``chip_smoke.py`` phase
+24 solves it from a tracking solution; its problem has no KKT structure,
+so every mode is the dense path) and each ``kkt`` mode ("dense", "auto",
+"structured"), on one CUDA card (``--batch`` lanes in place of 32):
 
 * seconds per ``body_fn`` call (host clock around 5 calls ending in
   ``torch.cuda.synchronize()``, after ``init_fn`` and 3 warm-up steps);
@@ -24,7 +28,9 @@ dense ``vmap(jacfwd(c))`` and ``vmap(jacfwd(grad(L)))`` (hanging lane
 only: the contact leg's dense Hessian pass would hold 32 x 2628 seeds of
 its whole graph) against the compressed ``jac_blocks`` and
 ``hess_blocks`` (of the Lagrangian, and of the objective alone, the
-curvature the leg's lanes use); on the ``Track`` lane also the same
+curvature the leg's lanes use); on the prediction lane the dense
+``vmap(jacfwd(c))`` and the objective's ``vmap(jacfwd(grad(f)))``, the
+passes of its iteration; on the ``Track`` lane also the same
 passes with its ``MarkerTrackingGoal`` taken out (``without_markers``),
 so that their difference is the marker goal's cost.
 
@@ -32,11 +38,12 @@ Prints one JSON object per line. Run from the root of the repository::
 
     python3 scripts/profile_torch_iteration.py [--out profile.json] \
         [--modes dense,auto,structured] \
-        [--lane hanging|contact_leg|contact_leg_track|walker_track] \
-        [--batch 32]
+        [--lane hanging|contact_leg|contact_leg_track|walker_track|\
+walker_predict] [--batch 32]
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,6 +60,7 @@ from chip_smoke import _track_starts  # noqa: E402
 from opensim_moco_tpu_torch.config import full_precision  # noqa: E402
 from opensim_moco_tpu_torch.examples import (  # noqa: E402
     contact_leg_study, contact_leg_track_study, hanging_muscle_study,
+    walker2d_prediction_study, walker2d_reference_trajectory,
     walker2d_track_study)
 from opensim_moco_tpu_torch.parallel import batch_guesses  # noqa: E402
 from opensim_moco_tpu_torch.solver.ipm import (  # noqa: E402
@@ -96,10 +104,10 @@ def _busy_share(prof):
     return launches, busy * 1e-6, (t_hi - t_lo) * 1e-6
 
 
-def profile_mode(tr, Z0, z0, mode, extra=None, dev="cuda"):
+def profile_mode(tr, Z0, z0, mode, options, dev="cuda"):
     nlp = tr.make_nlp(dev)
     init_fn, body_fn, _, _ = make_kernel(
-        nlp, IPMOptions(**BENCH, kkt=mode, **(extra or {})), scale_z0=z0,
+        nlp, dataclasses.replace(options, kkt=mode), scale_z0=z0,
         device=dev)
     with full_precision(dev):
         carry = init_fn(Z0)
@@ -134,6 +142,22 @@ def profile_mode(tr, Z0, z0, mode, extra=None, dev="cuda"):
                    for k, (s, c) in k1.items()],
             "top_device_s": [{"name": k[:80], "s": s, "count": c}
                              for k, s, c in top]}
+
+
+def dense_passes(tr, Z0, dev="cuda"):
+    """The dense derivative passes of an NLP without a KKT structure: the
+    constraint Jacobian and the objective's Hessian (objective-only
+    curvature)."""
+    nlp = tr.make_nlp(dev)
+    z = torch.as_tensor(Z0, device=dev)
+    with full_precision(dev):
+        return {"n": nlp.n, "m": nlp.m,
+                "c_s": _host_s(lambda: nlp.constraints(z), 5),
+                "f_s": _host_s(lambda: nlp.objective(z), 5),
+                "dense_J_s": _host_s(
+                    lambda: vmap(jacfwd(nlp.constraints))(z), 3),
+                "dense_H_objective_s": _host_s(
+                    lambda: vmap(jacfwd(grad(nlp.objective)))(z), 3)}
 
 
 def derivative_passes(tr, Z0, dense=True, dev="cuda"):
@@ -182,7 +206,7 @@ def main():
     ap.add_argument("--modes", default="dense,auto,structured")
     ap.add_argument("--lane", default="hanging",
                     choices=("hanging", "contact_leg", "contact_leg_track",
-                             "walker_track"))
+                             "walker_track", "walker_predict"))
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -204,11 +228,17 @@ def main():
                      "contact_leg_track" else walker2d_track_study)(50)
         tr = study.transcription()
         Z0 = _track_starts(tr, z0, args.batch)
+    elif args.lane == "walker_predict":
+        study, z0 = walker2d_prediction_study(
+            10, guess=walker2d_reference_trajectory())
+        tr = study.transcription()
+        Z0 = np.repeat(z0[None], args.batch, 0)
     else:
         z0 = tr.initial_guess()
         Z0 = batch_guesses(tr, args.batch, scale=0.05, seed=0)
     results = {"card": card, "lane": args.lane, "batch": args.batch,
                "derivatives":
+               dense_passes(tr, Z0) if args.lane == "walker_predict" else
                derivative_passes(tr, Z0, dense=args.lane == "hanging")}
     print(json.dumps(results["derivatives"]), flush=True)
     if args.lane == "contact_leg_track":
@@ -218,10 +248,14 @@ def main():
             study.transcription(), Z0, dense=False)
         print(json.dumps({"without_markers": results["without_markers"]}),
               flush=True)
-    extra = (None if args.lane == "hanging" else
-             {"hessian_approximation": "objective-only"})
+    if args.lane == "walker_predict":
+        options = study.ipm_options
+    else:
+        options = IPMOptions(**BENCH, **({} if args.lane == "hanging" else
+                                         {"hessian_approximation":
+                                          "objective-only"}))
     for mode in args.modes.split(","):
-        results[mode] = profile_mode(tr, Z0, z0, mode, extra)
+        results[mode] = profile_mode(tr, Z0, z0, mode, options)
         print(json.dumps(results[mode]), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))
