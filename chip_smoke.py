@@ -6,13 +6,14 @@ through ``opensim_moco_tpu_torch.parallel.make_batched_solver``, in
 float64, at the bench configuration: Hermite-Simpson at 25 mesh
 intervals, 32 jittered starts, the bench's IPM options. So that the whole
 script stays under 20 minutes, the bench's ``max_iter`` of 200 is cut to
-40 (phases 2-9), 50 (phase 5), 30 (phase 11) and 10 (phase 17: its lanes'
+40 (phases 2-9), 50 (phase 5), 30 (phase 11) and 6 (phase 17: its lanes'
 convergence is recorded, not held; phase 19 solves the same leg to
 convergence through ``Track``), ``Track``'s 2000 to 200 (phase 19), 10
 (phase 20: lane 0 converges in 8), the JAX bench's gait2d lane's 250 to
 ``WALKER_MAX_ITER`` (phase 22: lane 0 converges in 90), the JAX
 package's gait2d prediction's 1000 to ``WALKER_PREDICT_MAX_ITER`` (phase
-24: its convergence is reported, not held), and
+24: its convergence is reported, not held), the ``Inverse`` tool's 2000
+to ``WALKER_INVERSE_MAX_ITER`` (phase 27), and
 the card-against-CPU checks of phases 18, 21, 23 and 25 take 2 steps in
 place of 3: a lane left at ``max_iter`` holds its batch to the end.
 
@@ -117,7 +118,7 @@ goals), on the planar contact leg of ``example_models/contact_leg.py``
     ``objective-only`` curvature (as the JAX bench's gait2d lane),
     ``kkt="structured"`` (every factor and solve through K1), with n, m,
     K1's shape (N, the padded nb, the inner blocks' width and k) and
-    launches (at ``max_iter`` 10 no lane converges: the count is
+    launches (at ``max_iter`` 6 no lane converges: the count is
     reported, not held); then K1 against its plain version on this
     lane's first Newton blocks;
 18. card against CPU for lanes 0-3 of phase 17 as in phase 14 (each of 2
@@ -200,15 +201,47 @@ tool's own goals without the symmetry rows and the GRF tracking):
     dynamics under the Hessian pass) on the card against the CPU at two
     points, within 1e-10.
 
+The walker's MocoInverse (``examples.walker2d_inverse_study(0.01)``: the
+JAX package's ``gait_inverse_study`` set-up, whose subject files are not
+in the repository, on the walker's wrapping variant: cylinder wraps on
+the vasti and the gastrocnemius, rect_fem's moving insertion and
+bifemsh's conditional point; no spheres, the measured GRFs applied as
+external loads from an ExternalLoads XML and .mot through
+``ModOpAddExternalLoads``; implicit compliant tendons, no passive fiber
+force, reserves on the six leg coordinates; every coordinate prescribed
+from the reference motion low-passed at 6 Hz), with the ``Inverse``
+tool's options and its ``max_iter`` of 2000 cut to
+``WALKER_INVERSE_MAX_ITER``:
+
+27. the inverse, B = ``WALKER_INVERSE_B``: lane 0 the bounds-midpoint
+    guess, the others ``batch_guesses``'s jitter (seed 0),
+    ``kkt="auto"`` (n + m above 1200: every factor and solve through K1),
+    with n, m, K1's shape and launches, every lane's iterations and final
+    KKT error, seconds per iteration, the card's peak memory, and lane
+    0's share of each leg joint's and pelvis coordinate's net torque
+    that its reserve or residual carries; lane 0 converges. Then K1
+    against its plain version on this lane's first Newton blocks;
+28. card against CPU for lanes 0-1 of phase 27 as in phase 14, with 2
+    steps;
+29. the inverse's model (the wrapping walker with the GRFs) on the card
+    against the CPU, within 1e-10: path lengths, rates and moment arms,
+    ``applied_generalized_forces``, ``applied_body_wrenches`` and
+    ``joint_reaction`` at 8 seeded poses and at lane 0's iterate of
+    phase 27; and a ``JointReactionGoal`` on the right knee added to the
+    walker's ``Track`` study at mesh 10: f, its gradient, the J blocks
+    and the exact Lagrangian's H blocks at two points with random
+    multipliers.
+
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
 bound, at shape (a), and under a key that names shape (b) the same times
 at shape (b), which the main path does not launch; the solve also under
 a key for its 1-column times at shape (a); and under a key per shape the
 same numbers for the Newton blocks of phases 10 and 13, with the
-launches of that phase's solve (phases 10, 13, 15, 16, 17, 19, 20 and
-22; the ``Track`` lanes' keys start with ``track_``, the walker's with
-``walker_track_``). The line before it
+launches of that phase's solve (phases 10, 13, 15, 16, 17, 19, 20, 22
+and 27; the ``Track`` lanes' keys start with ``track_``, the walker's with
+``walker_track_``, its inverse's with ``walker_inverse_``). The line
+before it
 gives each phase's wall seconds. The last line of standard output is the result object.
 Run from the root of the repository::
 
@@ -218,7 +251,8 @@ Run from the root of the repository::
 loop to iterate on the kernel with; ``--phases 15,16`` runs the inverse
 problems, ``--phases 17,18`` the contact leg, ``--phases 19,20,21``
 the ``Track`` tool, ``--phases 22,23`` the walker and
-``--phases 22,24,25,26`` its prediction.
+``--phases 22,24,25,26`` its prediction and ``--phases 27,28,29`` its
+inverse.
 """
 
 import argparse
@@ -245,12 +279,18 @@ LARGE_KKT_DIM = 4000
 HUGE_KKT_DIM = 10000
 # the walker's Track lane (phase 22): its batch and iteration cap (lane 0
 # converges in 90 iterations, on the CPU as on the card; the jittered
-# lanes hold the batch to the cap)
+# lanes hold the batch to the cap, which leaves room for phases 27-29)
 WALKER_B = 4
-WALKER_MAX_ITER = 100
+WALKER_MAX_ITER = 95
 # the walker's prediction (phase 24): the JAX package's max_iter of 1000
 # cut (its convergence is reported, not held)
-WALKER_PREDICT_MAX_ITER = 50
+WALKER_PREDICT_MAX_ITER = 15
+# the walker's inverse (phase 27): its batch and the Inverse tool's
+# max_iter of 2000 cut (its 8 lanes converge in 30-33 iterations)
+WALKER_INVERSE_B = 8
+WALKER_INVERSE_MAX_ITER = 50
+# phase 29: the wrapping walker's quantities, card against CPU
+MODEL_RTOL = 1e-10
 COUNTERS = ("mu", "it", "converged", "filter_count", "acceptable_count",
             "rescue_count", "stall_count", "mu_wait")
 
@@ -956,6 +996,113 @@ def _tracking_goals_parity(torch):
                                  for k in cpu}}
 
 
+def _reserve_share(torch, tr, res):
+    """Per reserve and pelvis residual of the walker's inverse, on lane 0
+    if it converged: the share of its coordinate's net torque it carries,
+    sum |actuator torque| / sum |tau_net| over the grid (tau_net from the
+    prescribed kinematics and the GRFs, ``prescribed_point_constants``)."""
+    from opensim_moco_tpu_torch.example_models import walker2d
+
+    if not bool(res.converged[0]):
+        return None
+    m = tr.rep.model
+    p = m.default_params("cpu")
+    t0, tf, _, X, _, _, _, _, _, _ = tr.unpack(res.z[0].cpu().numpy())
+    ts = torch.as_tensor(t0 + (tf - t0) * np.asarray(tr.taus))
+    tau = m.prescribed_point_constants(p, ts)["tau_net"].numpy()
+    out = {}
+    for j, a in enumerate(m.actuators):
+        if a.name == walker2d.LUMBAR_ACTUATOR[0]:
+            continue
+        torque = a.optimal_force * X[:, j]
+        out[a.name] = float(np.abs(torque).sum() /
+                            max(np.abs(tau[:, a.coord]).sum(), 1e-300))
+    return out
+
+
+def _walker_model_quantities(torch, m, dev, args):
+    """The wrapping walker's path lengths, rates, moment arms, applied
+    generalized forces (the GRFs among them) and joint reactions at the
+    points ``args`` = (t, q, u, z, x) (numpy), on ``dev``."""
+    p = m.default_params(dev)
+    t, q, u, z, x = (torch.as_tensor(a, device=dev) for a in args)
+    lMT, vMT = m.muscle_path_kinematics(p, q, u)
+    return {k: v.cpu() for k, v in {
+        "lMT": lMT, "vMT": vMT,
+        "R": torch.func.vmap(torch.func.jacfwd(
+            lambda qq: m.path_lengths(p, qq)))(q),
+        "f_app": m.applied_generalized_forces(p, t, q, u, z, x),
+        "body_wrenches": m.applied_body_wrenches(p, t, q, u, z, x),
+        "joint_reaction": m.joint_reaction(p, t, q, u, z, x)}.items()}
+
+
+def _walker_model_parity(torch, tr, res):
+    """The inverse's model (the wrapping walker with the GRFs) on the card
+    against the CPU: at 8 seeded poses near the reference (seed 0: the
+    reference at random times of the half cycle plus 0.05 rad of jitter,
+    random speeds, states and controls in their bounds) and, with phase
+    27's result, at lane 0's iterate (the prescribed q, u at the grid
+    times with its states and controls); max over the quantities of
+    max |card - CPU| / max |CPU|."""
+    from opensim_moco_tpu_torch.example_models import walker2d
+
+    m = tr.rep.model
+    rng = np.random.default_rng(0)
+    t = rng.uniform(0.0, walker2d.HALF_CYCLE, 8)
+    q = np.stack([walker2d.pose(tk) for tk in t]) + \
+        0.05 * rng.uniform(-1, 1, (8, m.nq))
+    u = rng.standard_normal((8, m.nq))
+    lo, hi = m.default_state_bounds()
+    z = rng.uniform(np.maximum(lo, 0.05), np.minimum(hi, 1.5), (8, m.naux))
+    clo, chi = m.default_control_bounds()
+    x = rng.uniform(clo, chi, (8, len(clo)))
+    sets = {"seeded": (t, q, u, z, x)}
+    if res is not None:
+        t0, tf, Y, X, _, _, _, _, _, _ = tr.unpack(res.z[0].cpu().numpy())
+        ts = torch.as_tensor(t0 + (tf - t0) * np.asarray(tr.taus))
+        qg, ug, _ = m.position_motion(m.default_params("cpu"), ts)
+        sets["phase27_lane0"] = (ts.numpy(), qg.numpy(), ug.numpy(), Y, X)
+    out = {"points": {k: len(v[0]) for k, v in sets.items()},
+           "max_rel_err": {}}
+    for name, args in sets.items():
+        card, cpu = (_walker_model_quantities(torch, m, dev, args)
+                     for dev in ("cuda", "cpu"))
+        for k in cpu:
+            err = float((card[k] - cpu[k]).abs().max() /
+                        cpu[k].abs().max().clamp(min=1e-300))
+            out["max_rel_err"][f"{name}_{k}"] = err
+    return out
+
+
+def _joint_reaction_goal_parity(torch, walker2d_track_study):
+    """A ``JointReactionGoal`` on the right knee (the reaction on
+    ``tibia_r``: force x, y and the moment about z) added to the walker's
+    ``Track`` study at mesh 10: f, its gradient, the J blocks and the
+    exact Lagrangian's H blocks on the card against the CPU at the tool's
+    guess and a jittered point, with random multipliers (seed 0)."""
+    from opensim_moco_tpu_torch.ocp import JointReactionGoal
+
+    study, guess = walker2d_track_study(10)
+    model = study.problem.model
+    knee = [b.name for b in model.mech.bodies].index("tibia_r")
+    study.problem.add_goal(JointReactionGoal(
+        name="knee_r_reaction", joint=knee, weight=1e-4,
+        measures=("force-x", "force-y", "moment-z")))
+    tr = study.transcription()
+    lb, ub = tr.bounds()
+    rng = np.random.default_rng(0)
+    width = np.where(np.isfinite(ub - lb), ub - lb, 1.0)
+    Z = np.stack([guess, np.clip(guess + 0.01 * width *
+                                 rng.uniform(-1, 1, tr.n), lb, ub)])
+    m = sum(size for _, size in tr.constraint_group_info())
+    NU = rng.standard_normal((2, m))
+    card, cpu = (_goal_derivatives(torch, tr, dev, Z, NU)
+                 for dev in ("cuda", "cpu"))
+    return {"n": tr.n, "m": m,
+            "max_lane_rel_err": {k: _lane_rel_err(card[k], cpu[k])
+                                 for k in cpu}}
+
+
 def _check_lanes(name, stats):
     if stats["converged"] == 0:
         _fail(f"{name}: no lane converged")
@@ -970,7 +1117,7 @@ def main():
                     "JSON file")
     ap.add_argument("--phases",
                     default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19,20,21,22,23,24,25,26",
+                    "19,20,21,22,23,24,25,26,27,28,29",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -985,7 +1132,8 @@ def main():
         contact_leg_study, contact_leg_track_study, coupler_pendulum_study,
         double_pendulum_swingup_study, hanging_muscle_inverse,
         hanging_muscle_study, kirk_min_effort_study, oscillator_mass_study,
-        walker2d_prediction_study, walker2d_track_study)
+        walker2d_inverse_study, walker2d_prediction_study,
+        walker2d_track_study)
     from opensim_moco_tpu_torch.ops import _build
     from opensim_moco_tpu_torch.ops.btb import LAUNCHES
     from opensim_moco_tpu_torch.parallel import (batch_guesses,
@@ -1015,7 +1163,7 @@ def main():
                               ignore_activation_dynamics=False,
                               tendon_dynamics_implicit=True).transcription()
     # the bench's max_iter of 200 cut to 40 (phases 2-9; 5 at 50, 11 at 30,
-    # 17 at 10), so that the whole script stays under 1,200 s: the lanes
+    # 17 at 6), so that the whole script stays under 1,200 s: the lanes
     # left at max_iter hold each batch to the end (PERF.md, section 6)
     opts = IPMOptions(max_iter=40, kkt="dense", **bench)
     opts_st = dataclasses.replace(opts, kkt="structured")
@@ -1430,7 +1578,7 @@ def main():
         # bench's gait2d lane (bench.py:106-110): from the jittered
         # bounds-midpoint starts the exact Hessian's contact curvature
         # drives the regularization up until steps stall
-        opts17 = IPMOptions(max_iter=10, kkt="structured",
+        opts17 = IPMOptions(max_iter=6, kkt="structured",
                             hessian_approximation="objective-only", **bench)
     if 17 in phases:
         phase_start[17] = time.perf_counter()
@@ -1438,7 +1586,8 @@ def main():
                                      LAUNCHES)
         stats17.update(_kkt_shape(tr17))
         print("phase 17 contact leg, kkt=structured (mesh 50, B=32, "
-              "max_iter 10, f64, cuda; nb is the padded block width, "
+              f"max_iter {opts17.max_iter}, f64, cuda; nb is the padded "
+              "block width, "
               "nb_inner the widest block but the last; converged lanes "
               "reported, not held): " + json.dumps(stats17), flush=True)
         out["contact_leg_structured"] = stats17
@@ -1659,7 +1808,73 @@ def main():
             _fail("phase 26: the goals' derivatives on the card and the CPU "
                   "disagree")
 
-    # the K1 checks of phases 10, 13, 15, 16, 17, 19, 20 and 22 join the
+    # ---- phases 27-29: the walker's inverse, with wraps and measured GRFs
+    res27 = None
+    if phases & {27, 28, 29}:
+        st27 = walker2d_inverse_study(0.01)
+        tr27 = st27.transcription()
+        z27 = tr27.initial_guess()
+        Z27 = batch_guesses(tr27, WALKER_INVERSE_B, scale=0.05, seed=0)
+        Z27[0] = z27
+        # the Inverse tool's options, max_iter cut, K1 through "auto"
+        opts27 = dataclasses.replace(st27.ipm_options,
+                                     max_iter=WALKER_INVERSE_MAX_ITER,
+                                     kkt="auto")
+    if 27 in phases:
+        phase_start[27] = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        res27, stats27 = _solve_lane(torch, tr27, opts27, z27, Z27, dev,
+                                     LAUNCHES)
+        stats27.update(_kkt_shape(tr27))
+        stats27["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        stats27["s_per_iteration"] = stats27["wall_s"] / max(
+            1, stats27["max_iterations"])
+        conv27 = res27.converged.cpu().numpy()
+        stats27["lane0_converged"] = bool(conv27[0])
+        stats27["iterations"] = res27.iterations.cpu().tolist()
+        stats27["kkt_error"] = res27.kkt_error.cpu().tolist()
+        stats27["reserve_share"] = _reserve_share(torch, tr27, res27)
+        print(f"phase 27 walker inverse, kkt=auto (mesh interval 0.01, "
+              f"B={WALKER_INVERSE_B}, max_iter {WALKER_INVERSE_MAX_ITER}, "
+              "f64, cuda; lane 0 the bounds-midpoint guess): "
+              + json.dumps(stats27), flush=True)
+        out["walker_inverse"] = stats27
+        if min(stats27["launches"].values()) == 0:
+            _fail(f"phase 27: a kernel of the path never launched: "
+                  f"{stats27['launches']}")
+        key, chk = _newton_k1(torch, "phase 27 walker inverse", tr27, opts27,
+                              Z27, stats27["launches"])
+        newton["walker_inverse_" + key] = chk
+        if not conv27[0]:
+            _fail("phase 27: lane 0 (the bounds-midpoint guess) did not "
+                  "converge")
+    if 28 in phases:
+        phase_start[28] = time.perf_counter()
+        par28 = _iterate_parity(torch, tr27, opts27, z27, Z27[:2], COUNTERS,
+                                stepwise=True, steps=2)
+        print("phase 28 iterate parity cuda vs cpu, walker inverse lanes "
+              "0-1, 2 steps, kkt=auto: " + json.dumps(par28), flush=True)
+        out["iterate_parity_walker_inverse"] = par28
+        if max(par28["stepwise_max_lane_rel_err"].values()) > ITERATE_RTOL \
+                or not all(par28["exact"].values()):
+            _fail("phase 28: card and CPU iterates disagree")
+    if 29 in phases:
+        phase_start[29] = time.perf_counter()
+        res29 = _walker_model_parity(torch, tr27, res27)
+        res29["joint_reaction_goal"] = _joint_reaction_goal_parity(
+            torch, walker2d_track_study)
+        print("phase 29 wrapping walker cuda vs cpu (path kinematics, "
+              "moment arms, f_app with the GRFs, joint reactions; a "
+              "JointReactionGoal's f, grad f, J and exact-Lagrangian H "
+              "blocks): "
+              + json.dumps(res29), flush=True)
+        out["walker_model_parity"] = res29
+        worst = max(max(res29["max_rel_err"].values()), max(
+            res29["joint_reaction_goal"]["max_lane_rel_err"].values()))
+        if worst > MODEL_RTOL:
+            _fail(f"phase 29: card and CPU disagree by {worst}")
+
+    # the K1 checks of phases 10, 13, 15, 16, 17, 19, 20, 22 and 27 join the
     # kernels line by shape
     for key, chk in newton.items():
         if not kernels:  # phase 8 not run: these shapes lead

@@ -65,6 +65,17 @@ reaction force of each foot: its stance weight (1 in single stance, 0
 in swing, a quintic step across double support) times the body weight
 plus the total mass times the pelvis's vertical acceleration; the other
 components are 0.
+
+For the inverse (``build_inverse_walker``, the JAX package's
+``gait_inverse_study`` set-up): a wrapping variant of the model
+(``build_walker(..., wrap_cylinder=...)``: ``WRAP_CYLINDERS`` on the
+vasti, with two candidate segments, and on the gastrocnemius, two chained
+on its one segment; rect_fem's insertion a moving point, splines of the
+knee angle; a conditional via point on bifemsh while the knee flexes past
+``BIFEMSH_FLEXION``; on both sides), and the ground reaction forces as an
+OpenSim ExternalLoads XML and .mot (``write_external_loads``): the forces
+above, applied on ``calcn_r`` and ``calcn_l`` at each foot's lowest
+sphere point along the reference (``contact_points``).
 """
 
 import numpy as np
@@ -299,6 +310,97 @@ def grf_reference():
     return out
 
 
+# the height over which the centre of pressure blends from one sphere's
+# lowest point to the other's (m)
+COP_BLEND = 0.002
+
+
+def contact_points(q):
+    """The centre of pressure (x, y) of the right and the left foot (2, 2)
+    at one pose q (10,) in COORDS order: the lowest sphere point, from the
+    frames of :func:`lowest_points`. Where the two spheres' lowest points
+    are level within a few ``COP_BLEND`` (a flat foot) the point is their
+    blend, weighted by exp(-height / COP_BLEND), so that it moves from
+    heel to toe without a jump."""
+    out = []
+    for s in range(2):
+        o, a = _leg_frames(*q[:3], *q[3 + 3 * s:6 + 3 * s])[3]
+        pts = np.array([o + _leg._rot(a) @ c - np.array([0.0, r])
+                        for c, r in (_HEEL, _FRONT)])
+        w = np.exp(-(pts[:, 1] - pts[:, 1].min()) / COP_BLEND)
+        out.append(w @ pts / w.sum())
+    return np.array(out)
+
+
+GRF_BODIES = (("Right_GRF", "calcn_r", "r"), ("Left_GRF", "calcn_l", "l"))
+
+
+def external_loads_mot_text():
+    """The ground reaction forces as an OpenSim .mot: over the reference's
+    times, per foot ``ground_force_<s>_v{x,y,z}`` (``grf_reference()``),
+    ``ground_force_<s>_p{x,y,z}`` (the foot's lowest sphere point along
+    ``reference()``, z = 0) and ``ground_torque_<s>_{x,y,z}`` (zero)."""
+    t, Q = reference()
+    grf = grf_reference()
+    names, cols = [], []
+    pts = np.stack([contact_points(q) for q in Q])  # (K, 2, 2)
+    for k, (key, _, s) in enumerate(GRF_BODIES):
+        force = grf[key][1]
+        point = np.concatenate([pts[:, k], np.zeros((len(t), 1))], axis=1)
+        for prefix, data in ((f"ground_force_{s}_v", force),
+                             (f"ground_force_{s}_p", point),
+                             (f"ground_torque_{s}_", np.zeros((len(t), 3)))):
+            for j, axis in enumerate("xyz"):
+                names.append(prefix + axis)
+                cols.append(data[:, j])
+    data = np.stack(cols, axis=1)
+    lines = ["walker2d_grf", "version=1", f"nRows={len(t)}",
+             f"nColumns={1 + len(names)}", "inDegrees=no", "endheader",
+             "\t".join(["time"] + names)]
+    lines += ["\t".join(f"{v:.17g}" for v in (tk, *row))
+              for tk, row in zip(t, data)]
+    return "\n".join(lines) + "\n"
+
+
+def external_loads_xml_text(datafile):
+    """An OpenSim ExternalLoads XML applying ``Right_GRF`` to ``calcn_r``
+    and ``Left_GRF`` to ``calcn_l``, force and point in the ground frame,
+    from the .mot ``datafile``."""
+    forces = "".join(f"""
+      <ExternalForce name="{name}">
+        <applied_to_body>{body}</applied_to_body>
+        <force_expressed_in_body>ground</force_expressed_in_body>
+        <point_expressed_in_body>ground</point_expressed_in_body>
+        <force_identifier>ground_force_{s}_v</force_identifier>
+        <point_identifier>ground_force_{s}_p</point_identifier>
+        <torque_identifier>ground_torque_{s}_</torque_identifier>
+      </ExternalForce>""" for name, body, s in GRF_BODIES)
+    return f"""<?xml version="1.0" encoding="UTF-8" ?>
+<OpenSimDocument Version="40000">
+  <ExternalLoads name="externalloads">
+    <objects>{forces}
+    </objects>
+    <groups />
+    <datafile>{datafile}</datafile>
+  </ExternalLoads>
+</OpenSimDocument>
+"""
+
+
+def write_external_loads(folder, stem="walker2d_grf"):
+    """Write ``<stem>.mot`` and ``<stem>_external_loads.xml`` into
+    ``folder``; returns the XML's path."""
+    import os
+
+    mot = f"{stem}.mot"
+    with open(os.path.join(folder, mot), "w") as fh:
+        fh.write(external_loads_mot_text())
+    xml = os.path.join(folder, f"{stem}_external_loads.xml")
+    with open(xml, "w") as fh:
+        fh.write(external_loads_xml_text(mot))
+    return xml
+
+
 def mean_pose():
     """The pose at the right leg's mean joint angles over a stride, on
     both sides (the left leg's mean is the same)."""
@@ -315,10 +417,73 @@ def path_lengths(q):
         for a, b in zip(path[:-1], path[1:])) for _, _, path in MUSCLES])
 
 
-def build_walker(MechModelBuilder, Model, CubicSpline, muscle):
+# the wrapping variant (``build_walker(..., wrap_cylinder=...)``), per
+# side; a body is a segment index as in MUSCLES. (name, segment,
+# translation, xyz rotation, radius, quadrant) per cylinder:
+WRAP_CYLINDERS = (
+    # the vasti over the femoral condyles, on either of their two segments
+    ("KnExt_at_fem", 1, (0.0, -0.41, 0.0), (0.0, 0.0, 0.0), 0.03, "+x"),
+    # the gastrocnemius over the condyles and then the shank, chained
+    ("Gastroc_at_condyles", 1, (-0.01, -0.40, 0.0), (0.0, 0.0, 0.0), 0.02,
+     "-x"),
+    ("GasMed_at_shank", 2, (-0.02, -0.20, 0.0), (0.0, 0.0, 0.0), 0.015,
+     "-x"),
+)
+# (muscle, cylinder names, candidate segments)
+WRAPS = (("vasti", ("KnExt_at_fem",), (0, 1)),
+         ("gastroc", ("GasMed_at_shank", "Gastroc_at_condyles"), (0,)))
+# the inverse's reserves (``examples.walker2d_inverse_study``): coordinate
+# actuators named reserve_<coordinate> on the six leg coordinates, as the
+# arm of tests/inverse_arm.py has them; without them the muscles cannot
+# balance the hip and knee moments of the planned push-off, where one
+# foot's toe carries the body weight
+LEG_RESERVES = COORDS[3:9]
+RESERVE_FORCE = 100.0
+RESERVE_BOUND = 5.0
+RESERVES_WEIGHT = 10.0
+# rect_fem's insertion moves with the knee angle (a MovingPathPoint, as
+# the patella carries it): its x and y in the tibia frame, natural cubic
+# splines through these knots; equal to MUSCLES' fixed point at a knee
+# angle of -0.45
+RECT_FEM_KNEE = (-2.0944, -1.2, -0.45, 0.0, 0.3)
+RECT_FEM_X = (0.058, 0.05, 0.04, 0.036, 0.035)
+RECT_FEM_Y = (-0.048, -0.052, -0.06, -0.064, -0.065)
+# the short head of biceps femoris bends over the back of the condyles
+# while the knee is flexed past BIFEMSH_FLEXION (a ConditionalPathPoint)
+BIFEMSH_VIA = (-0.03, -0.37, 0.0)
+BIFEMSH_FLEXION = -0.6
+
+
+def _wrapping_path(name, path, s, coord, CubicSpline):
+    """The wrapping variant's path of muscle ``name`` (MUSCLES' path
+    ``path``; segments as there) on side ``s``."""
+    if name == "rect_fem":
+        knee = coord[f"knee_angle_{s}"]
+        fx, fy = (CubicSpline(np.asarray(RECT_FEM_KNEE), np.asarray(v))
+                  for v in (RECT_FEM_X, RECT_FEM_Y))
+        return path[:-1] + [("moving", path[-1][0],
+                             ((fx, knee), (fy, knee), (None, 0)))]
+    if name == "bifemsh":
+        return [path[0], ("conditional", path[0][0], BIFEMSH_VIA,
+                          coord[f"knee_angle_{s}"], -2.0944,
+                          BIFEMSH_FLEXION), path[1]]
+    return path
+
+
+def build_walker(MechModelBuilder, Model, CubicSpline, muscle,
+                 wrap_cylinder=None, contact=True):
     """The walker as a ``Model`` of the package whose ``MechModelBuilder``,
     ``Model``, ``CubicSpline`` and muscle module (``default_muscle_params``)
-    are given; finalized."""
+    are given; finalized.
+
+    With the package's ``WrapCylinderSpec`` as ``wrap_cylinder``, the
+    wrapping variant: the cylinders of ``WRAP_CYLINDERS`` on the vasti
+    (two candidate segments) and the gastrocnemius (two cylinders chained
+    on its one segment), rect_fem's moving insertion and bifemsh's
+    conditional point, on both sides; the muscles' l0 stays that of the
+    plain paths. Over the half cycle each wrap engages at some grid times
+    and not at others, and the conditional point is on the path at some
+    and off it at others. ``contact=False`` leaves out the spheres."""
     kx, ky = _leg._knee_splines(CubicSpline)
     ident = _leg.Identity()
 
@@ -352,21 +517,32 @@ def build_walker(MechModelBuilder, Model, CubicSpline, muscle):
                joint_name="lumbar", kind="revolute", axis=(0, 0, 1),
                tree_r=LUMBAR_IN_PELVIS, coord_name="lumbar")
     model = Model(b.finalize())
+    coord = {c: k for k, c in enumerate(COORDS)}
     l0 = path_lengths(mean_pose())
     for si, s in enumerate(SIDES):
         bodies = (0, 1 + 3 * si, 2 + 3 * si, 3 + 3 * si)
-        for name, centre, radius in _leg.SPHERES:
-            model.add_sphere_contact(name[:-2] + f"_{s}", bodies[3], centre,
-                                     radius, **CONTACT)
+        if contact:
+            for name, centre, radius in _leg.SPHERES:
+                model.add_sphere_contact(name[:-2] + f"_{s}", bodies[3],
+                                         centre, radius, **CONTACT)
+        cyls = {} if wrap_cylinder is None else {
+            name: wrap_cylinder(f"{name}_{s}", bodies[seg], trans, rot, r,
+                                quad)
+            for name, seg, trans, rot, r, quad in WRAP_CYLINDERS}
+        wraps = {m: tuple((cyls[c], cands) for c in names)
+                 for m, names, cands in WRAPS} if cyls else {}
         for (name, f_max, path), length in zip(MUSCLES, l0):
             params = muscle.default_muscle_params(
                 max_isometric_force=f_max,
                 optimal_fiber_length=0.55 * length,
                 tendon_slack_length=0.45 * length)
-            model.add_muscle(f"{name}_{s}",
-                             path=[(bodies[seg], loc) for seg, loc in path],
-                             params=params, ignore_activation_dynamics=False,
-                             ignore_tendon_compliance=True)
+            pts = [(bodies[seg], loc) for seg, loc in path]
+            if cyls:
+                pts = _wrapping_path(name, pts, s, coord, CubicSpline)
+            model.add_muscle(f"{name}_{s}", path=pts, params=params,
+                             ignore_activation_dynamics=False,
+                             ignore_tendon_compliance=True,
+                             wraps=wraps.get(name, ()))
     for coord in RESIDUALS:
         model.add_coordinate_actuator(
             f"{coord}_actuator", coord, optimal_force=_leg.ACTUATOR_FORCE,
@@ -374,4 +550,31 @@ def build_walker(MechModelBuilder, Model, CubicSpline, muscle):
     name, force, bound = LUMBAR_ACTUATOR
     model.add_coordinate_actuator(name, "lumbar", optimal_force=force,
                                   min_control=-bound, max_control=bound)
+    return model.finalize()
+
+
+def build_inverse_walker(MechModelBuilder, Model, CubicSpline, muscle,
+                         WrapCylinderSpec, ModOpAddExternalLoads):
+    """The model of the walker's inverse (the JAX package's
+    ``gait_inverse_study`` set-up) with the package's classes and its
+    ``ModOpAddExternalLoads``: the wrapping walker without its spheres,
+    its muscles with implicit tendon compliance and no passive fiber
+    force, reserves on the six leg coordinates (``LEG_RESERVES``), the
+    GRFs applied from the ExternalLoads XML and .mot that
+    :func:`write_external_loads` writes into a temporary folder (the loads
+    are read into splines, so the files go); finalized."""
+    import dataclasses
+    import tempfile
+
+    model = build_walker(MechModelBuilder, Model, CubicSpline, muscle,
+                         wrap_cylinder=WrapCylinderSpec, contact=False)
+    model.muscles = [dataclasses.replace(
+        m, ignore_tendon_compliance=False, tendon_dynamics_implicit=True,
+        ignore_passive_fiber_force=True) for m in model.muscles]
+    for coord in LEG_RESERVES:
+        model.add_coordinate_actuator(
+            f"reserve_{coord}", coord, optimal_force=RESERVE_FORCE,
+            min_control=-RESERVE_BOUND, max_control=RESERVE_BOUND)
+    with tempfile.TemporaryDirectory() as tmp:
+        ModOpAddExternalLoads(write_external_loads(tmp))(model)
     return model.finalize()

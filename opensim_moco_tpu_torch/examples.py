@@ -518,3 +518,41 @@ def walker2d_prediction_study(num_mesh_intervals=10, desired_speed=1.2,
     if guess is not None and hasattr(guess, "state_names"):
         guess = study.transcription().guess_from_trajectory(guess)
     return study, guess
+
+
+def walker2d_inverse_model():
+    """The model of :func:`walker2d_inverse_study`
+    (``walker2d.build_inverse_walker`` with the port's classes)."""
+    from .example_models import walker2d
+    from .models.wrap import WrapCylinderSpec
+    from .utils.processors import ModOpAddExternalLoads
+    from .utils.splines import CubicSpline
+
+    return walker2d.build_inverse_walker(MechModelBuilder, Model,
+                                         CubicSpline, dgf, WrapCylinderSpec,
+                                         ModOpAddExternalLoads)
+
+
+def walker2d_inverse_study(mesh_interval=0.01):
+    """MocoInverse on the walker, step for step as the JAX package's
+    ``gait_inverse_study`` (``examples.py:387``; reference
+    testMocoInverse.cpp:118-147), which reads the subject's files: DGF
+    muscles with implicit tendon compliance and no passive fiber force,
+    the measured GRFs as external loads (:func:`walker2d_inverse_model`),
+    every coordinate prescribed from the reference motion low-passed at 6
+    Hz over the half cycle [0, T], and the ``Inverse`` tool at tolerance
+    1e-3; the leg's reserves weighted ``walker2d.RESERVES_WEIGHT`` in the
+    effort, as the arm's in ``tests/inverse_arm.py``. Returns the
+    study."""
+    from .example_models import walker2d
+    from .tools.inverse import Inverse
+    from .utils.processors import filter_lowpass
+    from .utils.tables import StoTable
+
+    model = walker2d_inverse_model()
+    t, q = walker2d.reference()
+    kin = filter_lowpass(StoTable(t, list(walker2d.COORDS), q), 6.0)
+    return Inverse(model=model, kinematics=(kin.time, kin.data),
+                   initial_time=0.0, final_time=walker2d.HALF_CYCLE,
+                   mesh_interval=mesh_interval, convergence_tolerance=1e-3,
+                   reserves_weight=walker2d.RESERVES_WEIGHT).build_study()

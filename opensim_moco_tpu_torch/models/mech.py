@@ -530,6 +530,13 @@ class MechModel:
         absent."""
         if kin is None:
             kin = self.kinematics(p, q, u, rates=True)
+        return self._project(kin, self._body_forces(p, q, udot, kin), q, u,
+                             udot)
+
+    def _body_forces(self, p, q, udot, kin):
+        """RNEA's forward pass: per body the spatial force (body
+        coordinates, about its origin) its motion needs, gravity included
+        as the base's fictitious acceleration."""
         a_base = torch.cat([q.new_zeros(3), -p["gravity"]])
         a, f = [], []
         for i, b in enumerate(kin):
@@ -547,7 +554,42 @@ class MechModel:
                 f_i = f_i + mv(crf(b.v), mv(b.I, b.v))
             a.append(a_i)
             f.append(f_i)
-        return self._project(kin, f, q, u, udot)
+        return f
+
+    def joint_reaction_wrenches(self, p, q, u, udot,
+                                body_wrenches_world=None):
+        """(..., nb, 6) reaction each joint transmits to its child body,
+        [moment; force] in the world, the moment about the joint's
+        child-frame origin (Simbody's calcReactionOnChildExpressedInGround,
+        which MocoJointReactionGoal reads; JAX ``models/mech.py:430``).
+        RNEA's backward pass on one pass over the tree: the force across
+        joint i balances the dynamics of the subtree at body i less the
+        applied body wrenches ``body_wrenches_world`` (..., nb, 6), world
+        wrenches about the body origins. Gravity enters through the base's
+        fictitious acceleration."""
+        kin = self.kinematics(p, q, u, rates=True)
+        f = self._body_forces(p, q, udot, kin)
+        if body_wrenches_world is not None:
+            for i, b in enumerate(kin):
+                Wi = body_wrenches_world[..., i, :]
+                f[i] = f[i] - torch.cat([mv(b.A, Wi[..., :3]),
+                                         mv(b.A, Wi[..., 3:])], -1)
+        for i in reversed(range(self.nb)):
+            pa = self.parents[i]
+            if pa != GROUND:
+                f[pa] = f[pa] + mv(kin[i].X.transpose(-1, -2), f[i])
+        out = []
+        for i, b in enumerate(kin):
+            At = b.A.transpose(-1, -2)
+            n_w = mv(At, f[i][..., :3])
+            fl_w = mv(At, f[i][..., 3:])
+            # the moment from the body origin to the joint's child-frame
+            # origin: m_X = m_O - (X - O) x F, X - O = A^T child_r
+            r_w = mv(At, _const_vec(self._child_r[i], q))
+            n_w = n_w - torch.linalg.cross(*torch.broadcast_tensors(r_w,
+                                                                    fl_w))
+            out.append(torch.cat(torch.broadcast_tensors(n_w, fl_w), -1))
+        return torch.stack(torch.broadcast_tensors(*out), -2)
 
     def _project(self, kin, f, q, *like):
         """The backward pass: generalized forces tau_c = S_c . f_i from the
@@ -573,18 +615,27 @@ class MechModel:
         return torch.stack(torch.broadcast_tensors(*lead, *tau)[len(lead):],
                            -1)
 
-    def point_forces_to_generalized(self, kin, q, forces):
+    def point_forces_to_generalized(self, kin, q, forces, moments=()):
         """tau = J^T F for world forces at points fixed in bodies:
         ``forces`` a list of (body, body-local point (..., 3), world force
         (..., 3)); the same generalized forces as the ``vjp`` of the points'
-        positions (JAX ``models/model.py:935``)."""
+        positions (JAX ``models/model.py:935``). ``moments``: (body, world
+        torque (..., 3)) pairs, pure moments on the bodies (the JAX
+        package's grad of omega . T)."""
         f = [None] * self.nb
+
+        def put(body, w):
+            f[body] = w if f[body] is None else f[body] + w
+
         for body, loc, F in forces:
             if body == GROUND:
                 continue
             Fb = mv(kin[body].A, F)
-            w = torch.cat(torch.broadcast_tensors(cross(loc, Fb), Fb), -1)
-            f[body] = w if f[body] is None else f[body] + w
+            put(body, torch.cat(torch.broadcast_tensors(cross(loc, Fb), Fb),
+                                -1))
+        for body, T in moments:
+            Tb = mv(kin[body].A, T)
+            put(body, torch.cat([Tb, torch.zeros_like(Tb)], -1))
         return self._project(kin, f, q)
 
     def bias_forces(self, p, q, u, kin=None):

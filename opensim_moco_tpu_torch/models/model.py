@@ -1,26 +1,32 @@
 """Model composition: mechanics + coordinate actuators + DGF muscles +
-contact.
+contact + measured external loads.
 
-Counterpart of ``opensim_moco_tpu.models.model`` for the components the
-port carries today. State layout (system order) ``y = [q, u, z]`` with the
-auxiliary states ordered per muscle as [activation?, normalized tendon
-force?]; one control per coordinate actuator, then one excitation per
-muscle.
+Counterpart of ``opensim_moco_tpu.models.model``. State layout (system
+order) ``y = [q, u, z]`` with the auxiliary states ordered per muscle as
+[activation?, normalized tendon force?]; one control per coordinate
+actuator, then one excitation per muscle, then one control per custom
+control force.
 
-Muscle tensions and contact forces act at points fixed in bodies; their
-generalized forces are the points' Jacobian transpose times the forces,
-taken by the backward pass of RNEA from one pass over the tree (the JAX
-package takes it from ``jax.vjp`` of the points). Every per-muscle
-selection is static (Python indices), so no index tensor is built per
-call and no unused branch is evaluated.
+Muscle tensions, contact forces and external loads act at points fixed in
+bodies; their generalized forces are the points' Jacobian transpose times
+the forces, taken by the backward pass of RNEA from one pass over the tree
+(the JAX package takes it from ``jax.vjp`` of the points). A conditional
+path point (OpenSim ConditionalPathPoint) keeps its muscle on that path:
+the tension acts on the segments through the point or on the segment that
+skips it, as the coordinate selects. A muscle with a moving path point
+(its location a function of a coordinate) or a wrap cylinder has a length
+that is no sum of segments between body-fixed points: its rate and its
+generalized force ``-(dL/dq)^T F`` come from a ``jvp`` and a ``vjp`` of
+that muscle's length alone. Every per-muscle selection is static (Python
+indices), so no index tensor is built per call and no unused branch is
+evaluated.
 
-Springs/dampers on coordinates, station contact (three force laws) and
-smooth sphere contact against the ground plane, kinematic constraints
-(with their Lagrange multipliers) and prescribed motion (the MocoInverse
-structure: ``y = z`` only, the multibody dynamics a force balance) are
-ported. External loads, custom control forces, wrapping and
-conditional/moving path points are not ported yet: adding one raises
-``NotImplementedError`` (ROADMAP.md, queue 1).
+Also ported: springs/dampers on coordinates, station contact (three force
+laws) and smooth sphere contact against the ground plane, custom control
+forces, kinematic constraints (with their Lagrange multipliers),
+prescribed motion (the MocoInverse structure: ``y = z`` only, the
+multibody dynamics a force balance), the applied body wrenches and the
+joint reactions.
 """
 
 from __future__ import annotations
@@ -34,11 +40,7 @@ from ..convert import params_from_numpy
 from . import muscle as dgf
 from .mech import GROUND, MechModel, _const_vec, spd_solve
 from .spatial import mv
-
-
-def _unported(what):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                              "queue 1)")
+from .wrap import chained_wrap_length, cylinder_wrap_length
 
 
 def _take(t, idx):
@@ -87,14 +89,27 @@ class SpringGeneralizedForceSpec:
 
 @dataclasses.dataclass(frozen=True)
 class MuscleSpec:
-    """DeGrooteFregly2016 muscle on a path of fixed points
-    ``("fixed", body, (x, y, z))``."""
+    """DeGrooteFregly2016 muscle on a path of straight segments between
+    path points (JAX ``models/model.py:59``):
+
+    * ``("fixed", body, (x, y, z))``
+    * ``("conditional", body, (x, y, z), coord_idx, lo, hi)``: on the path
+      only while the coordinate is in [lo, hi] (ConditionalPathPoint)
+    * ``("moving", body, ((fx, cx), (fy, cy), (fz, cz)))``: each location
+      component a function of a coordinate, or None for 0
+      (MovingPathPoint); a function maps a tensor elementwise
+
+    ``wraps``: ((WrapCylinderSpec, candidate_segments), ...) in PathWrapSet
+    order, the candidates 0-based indices of the path's straight
+    segments. A wrap adds its largest detour over its candidates; wraps
+    that list the same single candidate are chained on it."""
     name: str
     path: tuple
     ignore_activation_dynamics: bool = False
     ignore_tendon_compliance: bool = False
     tendon_dynamics_implicit: bool = False
     ignore_passive_fiber_force: bool = False
+    wraps: tuple = ()
     min_control: float = 0.0
     max_control: float = 1.0
 
@@ -255,6 +270,11 @@ class Model:
         self._muscle_params: list[dict] = []
         self.contacts: list[StationContactSpec] = []
         self.sphere_contacts: list[SphereContactSpec] = []
+        # measured external loads: dicts with body, force_fn(t),
+        # point_fn(t), torque_fn(t) or None
+        self.external_forces: list[dict] = []
+        # (name, fn, min_control, max_control), fn(p, t, q, u, control)
+        self.custom_control_forces: list[tuple] = []
         # the MarkerSet: marker name -> (body index, location in the body
         # frame), read by MarkerTrackingGoal and Track (JAX
         # models/model.py:252-255); no parameter, so not in ``p``
@@ -280,22 +300,43 @@ class Model:
                    tendon_dynamics_implicit=False,
                    ignore_passive_fiber_force=False,
                    wraps=(), min_control=0.0, max_control=1.0):
+        """JAX ``models/model.py:286``: legacy ``(body, loc)`` pairs and
+        inline ``("wrap", spec)`` markers (a wrap pinned to the segment it
+        was inserted into) are normalized; candidate segments outside the
+        path are dropped."""
         if params is None:
             params = dgf.default_muscle_params()
-        if wraps:
-            _unported("path wrapping")
         norm_path = []
+        norm_wraps = list(wraps)
         for pt in path:
             if isinstance(pt[0], str):
-                if pt[0] != "fixed":
-                    _unported(f"{pt[0]!r} path points")
-                norm_path.append(("fixed", pt[1], tuple(pt[2])))
+                if pt[0] == "wrap":
+                    norm_wraps.append((pt[1], (len(norm_path) - 1,)))
+                    continue
+                norm_path.append(tuple(pt))
             else:  # legacy (body, loc) pairs
                 norm_path.append(("fixed", pt[0], tuple(pt[1])))
+        # a conditional point has plain neighbours (as in the reference
+        # gait models): the path-length switch assumes it
+        has_cond = False
+        for i, pt in enumerate(norm_path):
+            if pt[0] == "conditional":
+                has_cond = True
+                assert 0 < i < len(norm_path) - 1, \
+                    "conditional path point cannot be an endpoint"
+                assert norm_path[i - 1][0] != "conditional" and \
+                    norm_path[i + 1][0] != "conditional", \
+                    "adjacent conditional path points unsupported"
+        assert not (has_cond and norm_wraps), \
+            "wraps on paths with conditional points unsupported"
+        nseg = len(norm_path) - 1
+        norm_wraps = tuple(
+            (spec, tuple(k for k in cands if 0 <= k < nseg))
+            for spec, cands in norm_wraps)
         self.muscles.append(MuscleSpec(
             name, tuple(norm_path), ignore_activation_dynamics,
             ignore_tendon_compliance, tendon_dynamics_implicit,
-            ignore_passive_fiber_force, float(min_control),
+            ignore_passive_fiber_force, norm_wraps, float(min_control),
             float(max_control)))
         self._muscle_params.append(params)
 
@@ -318,11 +359,24 @@ class Model:
         self.sphere_contacts.append(SphereContactSpec(
             name, body, tuple(location), float(radius), **kwargs))
 
-    def add_external_force(self, *args, **kwargs):
-        _unported("external loads")
+    def add_external_force(self, name, body, force_fn, point_fn,
+                           torque_fn=None):
+        """A measured external load (OpenSim ExternalForce; JAX
+        ``models/model.py:339``): a world force applied at a world point,
+        and an optional world torque, each a function of the time tensor
+        ``t`` (...) returning (..., 3)."""
+        self.external_forces.append({
+            "name": name, "body": body, "force_fn": force_fn,
+            "point_fn": point_fn, "torque_fn": torque_fn})
 
-    def add_custom_control_force(self, *args, **kwargs):
-        _unported("custom control forces")
+    def add_custom_control_force(self, name, fn, min_control=-np.inf,
+                                 max_control=np.inf):
+        """A scalar-controlled generalized force with any control
+        dependence (JAX ``models/model.py:348``): ``fn(p, t, q, u,
+        control) -> (..., nq)`` on the port's batched tensors. Appends one
+        control, /forceset/<name>."""
+        self.custom_control_forces.append(
+            (name, fn, float(min_control), float(max_control)))
 
     def add_kinematic_constraint(self, name, fn):
         """``fn(mech_params, q) -> (..., k)`` position-level residuals for
@@ -549,13 +603,16 @@ class Model:
 
     def control_names(self):
         return ([f"/forceset/{a.name}" for a in self.actuators] +
-                [f"/forceset/{m.name}" for m in self.muscles])
+                [f"/forceset/{m.name}" for m in self.muscles] +
+                [f"/forceset/{c[0]}" for c in self.custom_control_forces])
 
     def default_control_bounds(self):
         lo = [a.min_control for a in self.actuators] + \
-            [m.min_control for m in self.muscles]
+            [m.min_control for m in self.muscles] + \
+            [c[2] for c in self.custom_control_forces]
         hi = [a.max_control for a in self.actuators] + \
-            [m.max_control for m in self.muscles]
+            [m.max_control for m in self.muscles] + \
+            [c[3] for c in self.custom_control_forces]
         return np.array(lo), np.array(hi)
 
     def default_state_bounds(self):
@@ -629,50 +686,196 @@ class Model:
         return act, ft
 
     # ------------------------------------------------------------- forces
-    def path_lengths(self, p, q):
-        """(..., n_muscles) lengths of the straight-segment paths."""
-        return self._path_lengths_from_frames(self.mech.frames(p["mech"], q),
-                                              q)
+    @staticmethod
+    def _is_simple(ms):
+        """True for a muscle whose path points are all fixed in bodies
+        (fixed and conditional points) and that has no wrap: its length
+        is a sum of segments between body-fixed points."""
+        return not ms.wraps and all(pt[0] != "moving" for pt in ms.path)
 
-    def _path_lengths_from_frames(self, frames, q):
-        out = []
-        for ms in self.muscles:
-            pts = [self.mech._station_world(frames, body, loc, q)
-                   for _, body, loc in ms.path]
-            L = q.new_zeros(())
-            for a, b in zip(pts[:-1], pts[1:]):
-                L = L + _norm(b - a + 1e-30)
-            out.append(L)
-        return torch.stack(torch.broadcast_tensors(*out), -1)
+    @staticmethod
+    def _active(q, pt):
+        """Whether a conditional path point is on the path: its coordinate
+        in [lo, hi] (..., bool)."""
+        qc = q[..., pt[3]]
+        return (qc >= pt[4]) & (qc <= pt[5])
+
+    def _path_point_world(self, frames, q, pt):
+        """World position (..., 3) of one path point of any kind (JAX
+        ``models/model.py:693``)."""
+        loc = pt[2]
+        if pt[0] == "moving":
+            comps = [torch.zeros_like(q[..., 0]) if fn is None
+                     else fn(q[..., ci]) for fn, ci in loc]
+            loc = torch.stack(torch.broadcast_tensors(*comps), -1)
+        return self.mech._station_world(frames, pt[1], loc, q)
+
+    def path_lengths(self, p, q):
+        """(..., n_muscles) path lengths (JAX ``models/model.py:712``): a
+        conditional point switches between a-p-b and the direct a-b
+        segment, wraps add their detours."""
+        return self._lengths_of(p, q, range(len(self.muscles)))
+
+    def _path_steps(self, q, ms):
+        """The muscle's path as steps (i, active): with ``active`` None the
+        straight segment from point i to i + 1; else point i + 1 is
+        conditional, ``active`` (..., bool) its activity, and the step is
+        i -> i + 1 -> i + 2 where it is active, i -> i + 2 where not."""
+        i, n = 0, len(ms.path)
+        while i < n - 1:
+            nxt = ms.path[i + 1]
+            if nxt[0] == "conditional":
+                yield i, self._active(q, nxt)
+                i += 2
+            else:
+                yield i, None
+                i += 1
+
+    def _cyl_frame_maps(self, frames, spec, like):
+        """(to_cyl, from_cyl): the world <-> cylinder coordinate maps of a
+        wrap cylinder (JAX ``models/model.py:719``)."""
+        A, o = frames[spec.body]
+        At = A.transpose(-1, -2)
+        Ec = torch.stack([_const_vec(row, like) for row in spec.rotation()])
+        Ect = Ec.transpose(-1, -2)
+        tc = _const_vec(spec.translation, like)
+
+        def to_cyl(x):
+            return mv(Ec, mv(A, x - o) - tc)
+
+        def from_cyl(c):
+            return o + mv(At, mv(Ect, c) + tc)
+
+        return to_cyl, from_cyl
+
+    def _wrap_detours(self, frames, q, ms, pts):
+        """The extra length the muscle's wrap cylinders add (JAX
+        ``models/model.py:733``). A wrap with several candidate segments
+        adds max_k(L_wrap(segment k) - |segment k|) over them (the wrap
+        engages where it deflects the path most); wraps that share one
+        single candidate segment are chained on it, proximal first (a
+        lower body index is nearer the path's origin: the tree is
+        topologically ordered)."""
+        detour = q.new_zeros(())
+        groups, singles = {}, []
+        for spec, cands in ms.wraps:
+            if len(cands) == 1:
+                groups.setdefault(cands[0], []).append(spec)
+            else:
+                singles.append((spec, cands))
+        for seg, specs in groups.items():
+            a, b = pts[seg], pts[seg + 1]
+            straight = _norm(b - a + 1e-30)
+            if len(specs) == 1:
+                to_c, _ = self._cyl_frame_maps(frames, specs[0], q)
+                L = cylinder_wrap_length(to_c(a), to_c(b), specs[0].radius,
+                                         specs[0].quadrant)
+            else:
+                specs = sorted(specs, key=lambda s: s.body)
+                L = chained_wrap_length(a, b, [
+                    self._cyl_frame_maps(frames, s, q) + (s.radius,
+                                                          s.quadrant)
+                    for s in specs])
+            detour = detour + torch.clamp(L - straight, min=0.0)
+        for spec, cands in singles:
+            to_c, _ = self._cyl_frame_maps(frames, spec, q)
+            best = q.new_zeros(())
+            for k in cands:
+                a, b = pts[k], pts[k + 1]
+                straight = _norm(b - a + 1e-30)
+                L = cylinder_wrap_length(to_c(a), to_c(b), spec.radius,
+                                         spec.quadrant)
+                best = torch.maximum(best, L - straight)
+            detour = detour + best
+        return detour
+
+    def _muscle_length(self, frames, q, ms):
+        """One muscle's path length (...) (JAX ``models/model.py:784``)."""
+        pts = [self._path_point_world(frames, q, pt) for pt in ms.path]
+
+        def seg(i, j):
+            return _norm(pts[j] - pts[i] + 1e-30)
+
+        L = q.new_zeros(())
+        for i, active in self._path_steps(q, ms):
+            if active is None:
+                L = L + seg(i, i + 1)
+            else:
+                L = L + torch.where(active, seg(i, i + 1) + seg(i + 1, i + 2),
+                                    seg(i, i + 2))
+        if ms.wraps:
+            L = L + self._wrap_detours(frames, q, ms, pts)
+        return L
+
+    def _lengths_of(self, p, q, idx):
+        """The path lengths (..., len(idx)) of the muscles ``idx``."""
+        frames = self.mech.frames(p["mech"], q)
+        return torch.stack(torch.broadcast_tensors(*[
+            self._muscle_length(frames, q, self.muscles[i]) for i in idx]),
+            -1)
 
     def muscle_path_kinematics(self, p, q, u):
         """lMT, vMT (..., nm): the path lengths and their rates (the JAX
-        package's ``jvp`` of the lengths, here from the bodies'
-        velocities)."""
+        package's ``jvp`` of the lengths; here from the bodies' velocities
+        where the points are fixed in bodies)."""
         L, Ldot, _ = self._path_kinematics(
-            self.mech.kinematics(p["mech"], q, u, subspace=False), q)
+            self.mech.kinematics(p["mech"], q, u, subspace=False), p, q, u)
         return L, Ldot
 
-    def _path_kinematics(self, kin, q):
+    def _simple_path(self, frames, vels, q, ms):
+        """(L, Ldot, segments) of a muscle whose points are fixed in
+        bodies: the segments as (body_a, local point a, body_b, local
+        point b, unit vector from a to b (..., 3) times the segment's
+        weight). A conditional point's segments get its activity as
+        weight, the segment that skips it the complement."""
+        locs = [(pt[1], _const_vec(pt[2], q)) for pt in ms.path]
+        pv = [self.mech._station_world_velocity(frames, vels, body, loc, q)
+              for body, loc in locs]
+        segs = []
+
+        def segment(i, j, w=None):
+            (pa, va), (pb, vb) = pv[i], pv[j]
+            d = pb - pa + 1e-30
+            n = _norm(d)
+            e = d / n.unsqueeze(-1)
+            segs.append(locs[i] + locs[j] +
+                        (e if w is None else e * w.unsqueeze(-1),))
+            return n, (d * (vb - va)).sum(-1) / n
+
+        L = Ldot = q.new_zeros(())
+        for i, active in self._path_steps(q, ms):
+            if active is None:
+                l1, d1 = segment(i, i + 1)
+                L = L + l1
+                Ldot = Ldot + d1
+            else:
+                w = active.to(q.dtype)
+                l1, d1 = segment(i, i + 1, w)
+                l2, d2 = segment(i + 1, i + 2, w)
+                l3, d3 = segment(i, i + 2, 1.0 - w)
+                L = L + torch.where(active, l1 + l2, l3)
+                Ldot = Ldot + torch.where(active, d1 + d2, d3)
+        return L, Ldot, segs
+
+    def _path_kinematics(self, kin, p, q, u):
         """(lMT, vMT, segments): the lengths and their rates (..., nm), and
-        per muscle its straight segments as (body_a, local point a, body_b,
-        local point b, unit vector from a to b (..., 3))."""
+        per muscle the segments of :meth:`_simple_path`, or None for a
+        muscle with a moving point or a wrap, whose length and rate come
+        from a ``jvp`` of its length alone (:meth:`_lengths_of`)."""
         frames = [(b.A, b.o) for b in kin]
         vels = [b.v for b in kin]
         Ls, Ldots, segments = [], [], []
-        for ms in self.muscles:
-            locs = [(body, _const_vec(loc, q)) for _, body, loc in ms.path]
-            pts = [self.mech._station_world_velocity(frames, vels, body, loc,
-                                                     q)
-                   for body, loc in locs]
-            L = Ldot = q.new_zeros(())
-            segs = []
-            for k, ((pa, va), (pb, vb)) in enumerate(zip(pts[:-1], pts[1:])):
-                d = pb - pa + 1e-30
-                n = _norm(d)
-                L = L + n
-                Ldot = Ldot + (d * (vb - va)).sum(-1) / n
-                segs.append(locs[k] + locs[k + 1] + (d / n.unsqueeze(-1),))
+        other = [i for i, ms in enumerate(self.muscles)
+                 if not self._is_simple(ms)]
+        if other:
+            Lo, Ldo = torch.func.jvp(
+                lambda qq: self._lengths_of(p, qq, other), (q,), (u,))
+        for i, ms in enumerate(self.muscles):
+            if i in other:
+                k = other.index(i)
+                L, Ldot, segs = Lo[..., k], Ldo[..., k], None
+            else:
+                L, Ldot, segs = self._simple_path(frames, vels, q, ms)
             Ls.append(L)
             Ldots.append(Ldot)
             segments.append(segs)
@@ -737,35 +940,54 @@ class Model:
                                    include_muscles=True,
                                    include_controls=True, kin=None):
         """Total applied generalized force f_app(t, y, x, p): actuators,
-        springs, and the muscle tensions and contact forces mapped to
-        generalized forces by the Jacobian transpose of their points (JAX
-        ``models/model.py:858``, which takes that product from one ``vjp``
-        of the points and the rates from one ``jvp``; here both come from
-        one pass over the tree, ``kin`` = ``mech.kinematics(q, u)``, made
-        here if absent). ``include_muscles=False`` /
+        custom control forces, springs, and the muscle tensions, contact
+        forces and external loads mapped to generalized forces by the
+        Jacobian transpose of their points (JAX ``models/model.py:858``,
+        which takes that product from one ``vjp`` of the points and the
+        rates from one ``jvp``; here both come from one pass over the
+        tree, ``kin`` = ``mech.kinematics(q, u)``, made here if absent,
+        and for a muscle with a moving point or a wrap from a ``jvp`` and a
+        ``vjp`` of its length). ``include_muscles=False`` /
         ``include_controls=False`` drop those terms, leaving the part that
         the time alone fixes on a prescribed-kinematics problem; contact
-        stays."""
+        and external loads stay."""
         tau = (self.tau_controls(p, x) if include_controls
                else torch.zeros_like(q))
+        if include_controls and self.custom_control_forces:
+            # scalar-controlled forces with any control dependence (JAX
+            # models/model.py:876-881)
+            off = len(self.actuators) + len(self.muscles)
+            for j, (_, fn, _, _) in enumerate(self.custom_control_forces):
+                tau = tau + fn(p, t, q, u, x[..., off + j])
         if self.springs:
             tau = tau + self.spring_forces(p, q, u)
         nm = len(self.muscles) if include_muscles else 0
-        if not (nm or self.sphere_contacts or self.contacts):
+        if not (nm or self.sphere_contacts or self.contacts or
+                self.external_forces):
             return tau
         if kin is None:
             kin = self.mech.kinematics(p["mech"], q, u)
-        forces = []
+        forces, moments = [], []
         if nm:
-            L, Ldot, segments = self._path_kinematics(kin, q)
+            L, Ldot, segments = self._path_kinematics(kin, p, q, u)
             exc, act, ft = self._muscle_vec_state(z, x)
             F_m = self._muscle_forces_vec(p, act, ft, L, Ldot)
             # the tension pulls each segment's ends towards each other
+            other = []
             for m, segs in enumerate(segments):
+                if segs is None:
+                    other.append(m)
+                    continue
                 T = F_m[..., m, None]
                 for body_a, loc_a, body_b, loc_b, e in segs:
                     forces.append((body_a, loc_a, T * e))
                     forces.append((body_b, loc_b, -T * e))
+            if other:
+                # -(dL/dq)^T F of the muscles whose length is no sum of
+                # segments between body-fixed points
+                _, pull = torch.func.vjp(
+                    lambda qq: self._lengths_of(p, qq, other), q)
+                tau = tau + pull(-_take(F_m, other))[0]
         points = self._contact_points(kin, q)
         if points:
             frames = [(b.A, b.o) for b in kin]
@@ -774,7 +996,18 @@ class Model:
             F = self._contact_force_stack(p, P, Pdot)
             forces += [(body, _loc(loc, q), F[..., k, :])
                        for k, (body, loc) in enumerate(points)]
-        return tau + self.mech.point_forces_to_generalized(kin, q, forces)
+        # external loads: the force at the body-local point coincident with
+        # the measured centre of pressure at time t, frozen as the spheres'
+        # points are (JAX models/model.py:909-915); the torque a pure
+        # moment on the body (JAX :959-973, the grad of omega . T)
+        for ef in self.external_forces:
+            b = kin[ef["body"]]
+            loc = mv(b.A, ef["point_fn"](t) - b.o).detach()
+            forces.append((ef["body"], loc, ef["force_fn"](t)))
+            if ef["torque_fn"] is not None:
+                moments.append((ef["body"], ef["torque_fn"](t)))
+        return tau + self.mech.point_forces_to_generalized(kin, q, forces,
+                                                           moments)
 
     # -------------------------------------------------------------- contact
     def _contact_points(self, kin, q):
@@ -832,6 +1065,82 @@ class Model:
         F = self._contact_force_stack(p, P, Pdot)
         return {name: F[..., k, :]
                 for k, name in enumerate(self.contact_names())}
+
+    def applied_body_wrenches(self, p, t, q, u, z, x):
+        """(..., nb, 6) world wrenches [moment; force] about the body
+        origins (JAX ``models/model.py:1007``): contact forces, external
+        loads (the force at the measured point, and the torque) and the
+        muscle tensions at the path points of each straight segment, a
+        conditional point's weighted by its activity. The wrap cylinders'
+        reactions are not included (the chord between the points around a
+        wrap carries the tension), nor are coordinate actuators and
+        springs: they are mobility forces, which the joints transmit."""
+        kin = self.mech.kinematics(p["mech"], q, u, subspace=False)
+        frames = [(b.A, b.o) for b in kin]
+        W = [None] * self.mech.nb
+
+        def put(body, w):
+            if body != GROUND:
+                W[body] = w if W[body] is None else W[body] + w
+
+        def add(body, pt_w, f_w):
+            if body != GROUND:
+                put(body, torch.cat(torch.broadcast_tensors(
+                    torch.linalg.cross(*torch.broadcast_tensors(
+                        pt_w - frames[body][1], f_w)), f_w), -1))
+
+        if self.sphere_contacts or self.contacts:
+            cf = self.contact_forces(p, t, q, u)
+            for spec in self.sphere_contacts:
+                center_w = self.mech._station_world(frames, spec.body,
+                                                    spec.location, q)
+                add(spec.body, center_w - _const_vec(
+                    (0.0, spec.radius, 0.0), q), cf[spec.name])
+            for c in self.contacts:
+                add(c.body, self.mech._station_world(frames, c.body,
+                                                     c.location, q),
+                    cf[c.name])
+        for ef in self.external_forces:
+            add(ef["body"], ef["point_fn"](t), ef["force_fn"](t))
+            if ef["torque_fn"] is not None:
+                T = ef["torque_fn"](t)
+                put(ef["body"], torch.cat([T, torch.zeros_like(T)], -1))
+        if self.muscles:
+            lMT, vMT = self.muscle_path_kinematics(p, q, u)
+            _, act, ft = self._muscle_vec_state(z, x)
+            F = self._muscle_forces_vec(p, act, ft, lMT, vMT)
+            for mi, ms in enumerate(self.muscles):
+                pts = [(pt[1], self._path_point_world(frames, q, pt),
+                        self._active(q, pt).to(q.dtype)
+                        if pt[0] == "conditional" else None)
+                       for pt in ms.path]
+                Fm = F[..., mi, None]
+                for k, (body, pw, w_act) in enumerate(pts):
+                    f_w = torch.zeros_like(pw)
+                    for j in (k - 1, k + 1):
+                        if 0 <= j < len(pts):
+                            d = pts[j][1] - pw
+                            f_w = f_w + Fm * d / _norm(
+                                d + 1e-30).unsqueeze(-1)
+                    if w_act is not None:
+                        f_w = f_w * w_act.unsqueeze(-1)
+                    add(body, pw, f_w)
+        shape = torch.broadcast_shapes(q.shape[:-1] + (6,), *[
+            w.shape for w in W if w is not None])
+        return torch.stack([q.new_zeros(shape) if w is None
+                            else w.expand(shape) for w in W], -2)
+
+    def joint_reaction(self, p, t, q, u, z, x, lam=None, udot=None):
+        """(..., nb, 6) reaction wrench of every joint on its child body,
+        in the world, about the joint's child-frame origin (JAX
+        ``models/model.py:1083``; MocoJointReactionGoal's quantity).
+        ``udot`` defaults to the explicit forward dynamics here. The
+        constraint forces -G^T lam enter as mobility forces (exact for
+        coordinate couplers)."""
+        if udot is None:
+            udot = self.multibody_explicit(p, t, q, u, z, x, lam)
+        W = self.applied_body_wrenches(p, t, q, u, z, x)
+        return self.mech.joint_reaction_wrenches(p["mech"], q, u, udot, W)
 
     # ---------------------------------------------------- kinematic cons
     def phi(self, p, q):
@@ -906,7 +1215,7 @@ class Model:
         else:
             lMT = vMT = q.new_zeros((G, 0))
             R = q.new_zeros((G, 0, self.nq))
-        x0 = q.new_zeros((G, self.nx))
+        x0 = q.new_zeros((G, len(self.control_names())))
         z0 = q.new_zeros((G, self.naux))
         tau_passive = self.applied_generalized_forces(
             p, t, q, u, z0, x0, include_muscles=False,

@@ -2,7 +2,8 @@ from .goals import (AccelerationTrackingGoal, AngularVelocityTrackingGoal,
                     AverageSpeedGoal, ContactTrackingGoal, ControlGoal,
                     ControlTrackingGoal, CustomGoal, FinalTimeGoal, Goal,
                     InitialActivationGoal, InitialForceEquilibriumGoal,
-                    InitialVelocityEquilibriumDGFGoal, MarkerFinalGoal,
+                    InitialVelocityEquilibriumDGFGoal, JointReactionGoal,
+                    MarkerFinalGoal,
                     MarkerTrackingGoal, OrientationTrackingGoal, OutputGoal,
                     PeriodicityGoal, StateTrackingGoal, SumSquaredStateGoal,
                     TranslationTrackingGoal)
@@ -17,7 +18,7 @@ __all__ = [
     "ContactTrackingGoal", "MarkerTrackingGoal", "AverageSpeedGoal",
     "MarkerFinalGoal", "ControlTrackingGoal", "TranslationTrackingGoal",
     "OrientationTrackingGoal", "AngularVelocityTrackingGoal", "OutputGoal",
-    "AccelerationTrackingGoal",
+    "AccelerationTrackingGoal", "JointReactionGoal",
     "ParameterSpec", "PathConstraintSpec", "Problem", "ProblemRep",
     "VariableInfo", "Solution", "Study",
 ]

@@ -682,3 +682,32 @@ class AccelerationTrackingGoal(Goal):
             err = acc[..., k, :] - tables[body](t)
             total = total + (err * err).sum(-1)
         return total
+
+
+@dataclasses.dataclass
+class JointReactionGoal(Goal):
+    """Minimize one joint's reaction loads (MocoJointReactionGoal; JAX
+    ``ocp/goals.py:556``): the integrand is sum_i w_i r_i^2 over the
+    selected measures of the reaction on the joint's child body, in the
+    world (:meth:`Model.joint_reaction`, udot from the explicit forward
+    dynamics). ``joint`` is the child body's index; ``measures`` picks
+    from ("moment-x", "moment-y", "moment-z", "force-x", "force-y",
+    "force-z"). As in the JAX package, ``y`` is read as [q, u, z]."""
+    name: str = "joint_reaction"
+    joint: int = 0
+    measures: tuple = ("moment-x", "moment-y", "moment-z",
+                       "force-x", "force-y", "force-z")
+    measure_weights: dict = dataclasses.field(default_factory=dict)
+
+    _IDX = {"moment-x": 0, "moment-y": 1, "moment-z": 2,
+            "force-x": 3, "force-y": 4, "force-z": 5}
+
+    def integrand(self, rep, t, y, x, lam, p):
+        m = rep.model
+        q, u, z = m.split_state(y)
+        reac = m.joint_reaction(p, t, q, u, z, x, lam)[..., self.joint, :]
+        total = torch.zeros_like(t)
+        for meas in self.measures:
+            w = self.measure_weights.get(meas, 1.0)
+            total = total + w * reac[..., self._IDX[meas]] ** 2
+        return total

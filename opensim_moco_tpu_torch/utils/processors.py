@@ -5,10 +5,9 @@ Counterpart of the table half of ``opensim_moco_tpu.utils.processors``
 only: a ``TableProcessor`` holds a :class:`StoTable` and a chain of
 operations joined with ``|``, each a callable from table to table.
 
-The model operators (``ModelProcessor`` and the ModOps, JAX
-``processors.py:85-299``) act on external loads and ``.osim`` models,
-which the port does not have yet; they wait for ROADMAP.md queue 1
-items 4 and 9.
+Of the model operators (JAX ``processors.py:85-299``) the port has
+``ModOpAddExternalLoads``; ``ModelProcessor`` and the ModOps that act on
+``.osim`` models wait for ROADMAP.md queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -79,3 +78,23 @@ def TabOpLowPassFilter(cutoff_hz):
 
 def TabOpConvertDegreesToRadians():
     return convert_degrees_to_radians
+
+
+def ModOpAddExternalLoads(xml_path):
+    """An operator that applies the measured loads of an OpenSim
+    ExternalLoads XML to a model (the reference's ModOpAddExternalLoads;
+    JAX ``processors.py:239``): ``ModOpAddExternalLoads(path)(model)``
+    adds one external force per ExternalForce, on the body of that name,
+    and returns the model."""
+
+    def op(model):
+        from .osim import parse_external_loads
+
+        body_idx = {b.name: i for i, b in enumerate(model.mech.bodies)}
+        for s in parse_external_loads(xml_path):
+            model.add_external_force(s["name"], body_idx[s["body_name"]],
+                                     s["force_fn"], s["point_fn"],
+                                     s["torque_fn"])
+        return model
+
+    return op

@@ -12,7 +12,9 @@ walker_predict``: ``examples.walker2d_prediction_study(10)`` with its own
 IPM options, every lane warm-started from the walker's reference motion
 (``examples.walker2d_reference_trajectory``), as ``chip_smoke.py`` phase
 24 solves it from a tracking solution; its problem has no KKT structure,
-so every mode is the dense path) and each ``kkt`` mode ("dense", "auto",
+so every mode is the dense path; ``--lane walker_inverse``:
+``examples.walker2d_inverse_study(0.01)`` with the ``Inverse`` tool's IPM
+options from phase 27's starts) and each ``kkt`` mode ("dense", "auto",
 "structured"), on one CUDA card (``--batch`` lanes in place of 32):
 
 * seconds per ``body_fn`` call (host clock around 5 calls ending in
@@ -39,7 +41,7 @@ Prints one JSON object per line. Run from the root of the repository::
     python3 scripts/profile_torch_iteration.py [--out profile.json] \
         [--modes dense,auto,structured] \
         [--lane hanging|contact_leg|contact_leg_track|walker_track|\
-walker_predict] [--batch 32]
+walker_predict|walker_inverse] [--batch 32]
 """
 
 import argparse
@@ -60,8 +62,8 @@ from chip_smoke import _track_starts  # noqa: E402
 from opensim_moco_tpu_torch.config import full_precision  # noqa: E402
 from opensim_moco_tpu_torch.examples import (  # noqa: E402
     contact_leg_study, contact_leg_track_study, hanging_muscle_study,
-    walker2d_prediction_study, walker2d_reference_trajectory,
-    walker2d_track_study)
+    walker2d_inverse_study, walker2d_prediction_study,
+    walker2d_reference_trajectory, walker2d_track_study)
 from opensim_moco_tpu_torch.parallel import batch_guesses  # noqa: E402
 from opensim_moco_tpu_torch.solver.ipm import (  # noqa: E402
     IPMOptions, make_kernel)
@@ -206,7 +208,8 @@ def main():
     ap.add_argument("--modes", default="dense,auto,structured")
     ap.add_argument("--lane", default="hanging",
                     choices=("hanging", "contact_leg", "contact_leg_track",
-                             "walker_track", "walker_predict"))
+                             "walker_track", "walker_predict",
+                             "walker_inverse"))
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -223,6 +226,9 @@ def main():
             tendon_dynamics_implicit=True).transcription()
     elif args.lane == "contact_leg":
         tr = contact_leg_study(50).transcription()
+    elif args.lane == "walker_inverse":
+        study = walker2d_inverse_study(0.01)
+        tr = study.transcription()
     if args.lane in ("contact_leg_track", "walker_track"):
         study, z0 = (contact_leg_track_study if args.lane ==
                      "contact_leg_track" else walker2d_track_study)(50)
@@ -236,6 +242,8 @@ def main():
     else:
         z0 = tr.initial_guess()
         Z0 = batch_guesses(tr, args.batch, scale=0.05, seed=0)
+        if args.lane == "walker_inverse":  # phase 27's lane 0
+            Z0[0] = z0
     results = {"card": card, "lane": args.lane, "batch": args.batch,
                "derivatives":
                dense_passes(tr, Z0) if args.lane == "walker_predict" else
@@ -248,7 +256,7 @@ def main():
             study.transcription(), Z0, dense=False)
         print(json.dumps({"without_markers": results["without_markers"]}),
               flush=True)
-    if args.lane == "walker_predict":
+    if args.lane in ("walker_predict", "walker_inverse"):
         options = study.ipm_options
     else:
         options = IPMOptions(**BENCH, **({} if args.lane == "hanging" else

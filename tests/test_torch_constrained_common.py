@@ -6,9 +6,11 @@ fixed seed. No tests of its own.
 
 * layout, bounds, initial guess, constraint groups and jittered batch
   guesses: exactly equal (the same numpy computations);
-* c(z) and f(z) at the guess and at a jittered point: relative 1e-12 of
-  the largest magnitude (same formulas, only summation order differs),
-  and a batch of points evaluates like each point alone (1e-14);
+* c(z) and f(z) at the guess and at a jittered point (and, given
+  multipliers, the gradient of the Lagrangian): relative 1e-12 of the
+  largest magnitude (same formulas, only summation order differs), and a
+  batch of points evaluates like each point alone (1e-14); the JAX side
+  in one jitted function, compiled once;
 * the KKT structure's index lists, its compiled index arrays and their
   free-variable projection: exactly equal;
 * the compressed Jacobian and Hessian blocks at two lanes of points and
@@ -31,6 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from threadpoolctl import threadpool_limits
 from torch.func import grad
 
 from opensim_moco_tpu import examples as _jex  # noqa: F401  (see below)
@@ -47,6 +50,36 @@ from opensim_moco_tpu_torch.solver.kkt import CompiledStructure
 # cycle (parallel -> transcribe -> ocp -> transcribe); ``examples`` above
 # loads ``ocp`` first, as every other parity test does
 torch.set_num_threads(2)
+
+
+def one_blas_thread():
+    """A context in which numpy's and scipy's OpenBLAS, which the JAX
+    package's LAPACK calls run on, use one thread (the port's torch keeps
+    its own). With several test workers on the cores, OpenBLAS's spinning
+    threads slow each other down many-fold: the JAX side of a batched IPM
+    solve took 24 s alone and 400 s beside three more, 70 s with one
+    thread each (an 8-core CPU). JAX dispatches asynchronously, so block
+    on its results inside the context."""
+    return threadpool_limits(limits=1, user_api="blas")
+
+
+def per_lane(fn):
+    """``fn``, a function of one point, over the leading axis of its
+    arguments (pytrees): the values of ``jax.jit(jax.vmap(fn))``, with
+    ``fn`` compiled once for one point and called point by point. The JAX
+    package's functions trace and compile in about 30% less time
+    unbatched (its IPM step on the hanging muscle 28 s against 39 s, the
+    wrapped chain's quantities 26 s against 39 s, an 8-core CPU); the
+    calls cost milliseconds."""
+    f = jax.jit(fn)
+
+    def run(*args):
+        n = jax.tree_util.tree_leaves(args)[0].shape[0]
+        outs = [f(*jax.tree_util.tree_map(lambda a: a[k], args))
+                for k in range(n)]
+        return jax.tree_util.tree_map(lambda *a: jnp.stack(a), *outs)
+
+    return run
 
 
 def rel(port, ref):
@@ -68,6 +101,15 @@ def points(tr, seed=0):
     return [z0, z1]
 
 
+def jax_nlp(trj):
+    """The JAX transcription's NLP, built once per transcription and then
+    reused: each ``make_nlp`` traces the whole constraint function again
+    (7 s on the walker at mesh 3)."""
+    if not hasattr(trj, "_parity_nlp"):
+        trj._parity_nlp = trj.make_nlp()
+    return trj._parity_nlp
+
+
 def check_layout(trj, trt):
     assert trt.offsets == trj.offsets
     assert (trt.n, trt.G, trt.n_gamma, trt.n_pc_slack, trt.npar) == \
@@ -81,15 +123,32 @@ def check_layout(trj, trt):
         np.asarray(jax_batch_guesses(trj, 3, scale=0.05, seed=3)))
 
 
-def check_functions(trj, trt):
-    nj, nt = trj.make_nlp(), trt.make_nlp("cpu")
+def check_functions(trj, trt, nu=None):
+    """c(z) and f(z) at ``points``; with multipliers ``nu`` (m,) also the
+    gradient of the Lagrangian f + c . nu. The JAX side is one jitted
+    function of z (and nu), compiled once."""
+    nj, nt = jax_nlp(trj), trt.make_nlp("cpu")
     assert (nt.n, nt.m) == (nj.n, nj.m)
-    c_j, f_j = jax.jit(nj.constraints), jax.jit(nj.objective)
+    if nu is None:
+        funcs_j = jax.jit(lambda z: (nj.constraints(z), nj.objective(z)))
+    else:
+        def lag_j(z, nn):
+            return nj.objective(z) + nj.constraints(z) @ nn
+
+        funcs_j = jax.jit(lambda z, nn: (nj.constraints(z), nj.objective(z),
+                                         jax.grad(lag_j)(z, nn)))
+        nut = torch.as_tensor(nu)
     pts = points(trt)
     for z in pts:
         zt = torch.as_tensor(z)
-        assert rel(nt.constraints(zt), c_j(jnp.asarray(z))) <= 1e-12
-        assert rel(nt.objective(zt), f_j(jnp.asarray(z))) <= 1e-12
+        out_j = funcs_j(jnp.asarray(z)) if nu is None else funcs_j(
+            jnp.asarray(z), jnp.asarray(nu))
+        assert rel(nt.constraints(zt), out_j[0]) <= 1e-12
+        assert rel(nt.objective(zt), out_j[1]) <= 1e-12
+        if nu is not None:
+            g_t = grad(lambda zz: nt.objective(zz) +
+                       (nt.constraints(zz) * nut).sum())(zt)
+            assert rel(g_t, out_j[2]) <= 1e-12
     Z = torch.as_tensor(np.stack(pts))
     C, F = nt.constraints(Z), nt.objective(Z)
     for k, z in enumerate(pts):
@@ -105,7 +164,7 @@ def _compiled(nlp, cls):
 
 
 def check_structure(trj, trt):
-    nj, nt = trj.make_nlp(), trt.make_nlp("cpu")
+    nj, nt = jax_nlp(trj), trt.make_nlp("cpu")
     sj, st = nj.structure, nt.structure
     assert sj is not None and st is not None
     assert st.var_blocks == sj.var_blocks
@@ -128,11 +187,13 @@ def check_blocks(trj, trt, objective_only=False):
     lanes (the JAX side jitted lane by lane); with ``objective_only`` the
     Hessian is the objective's alone, as under
     ``hessian_approximation="objective-only"``."""
-    nj, nt = trj.make_nlp(), trt.make_nlp("cpu")
+    nj, nt = jax_nlp(trj), trt.make_nlp("cpu")
     rng = np.random.default_rng(0)
     Z = np.stack(points(trt))
     NU = rng.standard_normal((2, nt.m))
-    J0 = np.asarray(jax.jit(jax.jacfwd(nj.constraints))(jnp.asarray(Z[0])))
+    # the row scaling, one input of both sides, from the port's Jacobian
+    # (held to the JAX package's through c(z) and the J blocks)
+    J0 = torch.func.jacfwd(nt.constraints)(torch.as_tensor(Z[0])).numpy()
     c_scale = np.minimum(1.0, 100.0 / np.maximum(np.abs(J0).max(1), 1e-8))
     cj = jnp.asarray(c_scale)
     c_fn_j = lambda zz: cj * nj.constraints(zz)  # noqa: E731
@@ -180,13 +241,18 @@ def _port_carry(cj):
 
 def check_iterate_parity(trj, trt, opts, rtol, lanes=4, chained=True,
                          scaled=True):
-    """JAX ``make_kernel`` under ``jit(vmap(.))`` against the port's, from
+    """JAX ``make_kernel`` lane by lane (``per_lane``) against the port's, from
     ``lanes`` jittered starts, scaled at the guess (unscaled with
     ``scaled=False``)."""
+    with one_blas_thread():
+        _iterate_parity(trj, trt, opts, rtol, lanes, chained, scaled)
+
+
+def _iterate_parity(trj, trt, opts, rtol, lanes, chained, scaled):
     z0 = trt.initial_guess() if scaled else None
     Z0 = batch_guesses(trt, lanes, scale=0.05, seed=0)
-    init_j, body_j = (jax.jit(jax.vmap(f)) for f in jipm.make_kernel(
-        trj.make_nlp(), jipm.IPMOptions(**opts), scale_z0=z0)[:2])
+    init_j, body_j = (per_lane(f) for f in jipm.make_kernel(
+        jax_nlp(trj), jipm.IPMOptions(**opts), scale_z0=z0)[:2])
     init_t, body_t, _, _ = tipm.make_kernel(
         trt.make_nlp("cpu"), tipm.IPMOptions(**opts), scale_z0=z0,
         device="cpu")

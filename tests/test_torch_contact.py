@@ -33,6 +33,7 @@ from opensim_moco_tpu.models.model import Model as JModel
 from opensim_moco_tpu_torch.convert import params_from_numpy
 from opensim_moco_tpu_torch.models import MechModelBuilder as TMechModelBuilder
 from opensim_moco_tpu_torch.models.model import Model as TModel
+from test_torch_constrained_common import per_lane
 
 torch.set_num_threads(2)
 
@@ -109,8 +110,7 @@ def test_contact_forces_parity(law):
     q, u = _states(rng, 8, 2, -0.01, 0.06 if law == "sphere" else 0.01)
     e0 = jnp.zeros(0)
 
-    @jax.jit
-    @jax.vmap
+    @per_lane
     def jax_all(q, u):
         t = jnp.asarray(0.0)
         return (jm.contact_forces(pj, t, q, u)["contact"],
@@ -136,8 +136,7 @@ def test_contact_generalized_force_derivatives():
         return jm.applied_generalized_forces(pj, jnp.asarray(0.0), q, u, e0,
                                              e0)
 
-    @jax.jit
-    @jax.vmap
+    @per_lane
     def jax_all(q, u):
         forces = jm.contact_forces(pj, jnp.asarray(0.0), q, u)
         return (tau_j(q, u), jax.jacfwd(tau_j, 0)(q, u),
@@ -193,8 +192,7 @@ def test_prescribed_model_keeps_contact():
     pj, pt = _params(jm)
     ts = np.linspace(0.0, 1.0, 7)
 
-    @jax.jit
-    @jax.vmap
+    @per_lane
     def jax_all(t):
         c = jm.prescribed_point_constants(pj, t)
         z, x = jnp.zeros(jm.naux), jnp.zeros(jm.nx)

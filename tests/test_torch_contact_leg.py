@@ -18,10 +18,7 @@ contact is held on the models (``test_torch_custom_joint.py``,
 (``test_torch_gait_goals.py``).
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-import torch
 
 from opensim_moco_tpu_torch.example_models import contact_leg
 from opensim_moco_tpu import ocp as jocp
@@ -31,8 +28,7 @@ from opensim_moco_tpu.models.model import Model as JModel
 from opensim_moco_tpu.utils.splines import CubicSpline as JCubicSpline
 from opensim_moco_tpu_torch.examples import contact_leg_study
 from test_torch_constrained_common import (check_blocks, check_functions,
-                                           check_layout, check_structure,
-                                           points, rel)
+                                           check_layout, check_structure)
 
 MESH = 5
 
@@ -50,17 +46,8 @@ def test_contact_leg_functions_and_blocks_parity():
     assert trt.rep.state_names == trj.rep.state_names
     assert trt.rep.control_names == trj.rep.control_names
     check_layout(trj, trt)
-    check_functions(trj, trt)
-    nj, nt = trj.make_nlp(), trt.make_nlp("cpu")
-    nu = np.random.default_rng(1).standard_normal(nt.m)
-    grad_j = jax.jit(jax.grad(
-        lambda z: nj.objective(z) + nj.constraints(z) @ jnp.asarray(nu)))
-    nut = torch.as_tensor(nu)
-    for z in points(trt):
-        gt = torch.func.grad(lambda zz: nt.objective(zz) +
-                             (nt.constraints(zz) * nut).sum())(
-            torch.as_tensor(z))
-        assert rel(gt, grad_j(jnp.asarray(z))) <= 1e-12
+    nt = trt.make_nlp("cpu")
+    check_functions(trj, trt, np.random.default_rng(1).standard_normal(nt.m))
     check_structure(trj, trt)
     n_periodic = len(trt.rep.state_names) - 1
     assert list(nt.structure.border_cons) == list(

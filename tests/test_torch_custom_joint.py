@@ -30,6 +30,7 @@ from opensim_moco_tpu_torch.convert import params_from_numpy
 from opensim_moco_tpu_torch.models import MechModelBuilder as TMechModelBuilder
 from opensim_moco_tpu_torch.models import functions as tfun
 from opensim_moco_tpu_torch.utils.splines import CubicSpline as TCubicSpline
+from test_torch_constrained_common import per_lane
 
 torch.set_num_threads(2)
 
@@ -128,8 +129,7 @@ def test_custom_joint_mechanics_parity(name):
 
     last, loc = tm.nb - 1, (0.03, -0.1, 0.02)
 
-    @jax.jit
-    @jax.vmap
+    @per_lane
     def jax_all(q, u, ud, tau):
         return (jm.rnea(pj, q, u, ud), jm.mass_matrix(pj, q),
                 jm.forward_dynamics(pj, q, u, tau), jm.frames(pj, q),
@@ -144,7 +144,7 @@ def test_custom_joint_mechanics_parity(name):
     def wr_j(qu, ud_):
         return jm.rnea(pj, qu[:jm.nq], qu[jm.nq:], ud_) @ jnp.asarray(w)
 
-    H_j = jax.jit(jax.vmap(jax.hessian(wr_j)))(
+    H_j = per_lane(jax.hessian(wr_j))(
         jnp.asarray(np.concatenate([q, u], 1)), jnp.asarray(ud))
     wt = torch.as_tensor(w)
 

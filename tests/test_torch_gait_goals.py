@@ -42,7 +42,7 @@ from opensim_moco_tpu_torch.convert import params_from_numpy
 from opensim_moco_tpu_torch.models import MechModelBuilder as TMechModelBuilder
 from opensim_moco_tpu_torch.models.model import Model as TModel
 from test_torch_constrained_common import (check_blocks, check_functions,
-                                           check_structure)
+                                           check_structure, per_lane)
 
 torch.set_num_threads(2)
 
@@ -140,8 +140,8 @@ def test_tracking_integrands_parity(projection):
     t, y, x = _points(np.random.default_rng(6), 12)
     lam = jnp.zeros(0)
     for gj, gt in zip(rj.goals[:2], rt.goals[:2]):
-        ref = jax.jit(jax.vmap(lambda a, b, c, g=gj: g.integrand(
-            rj, a, b, c, lam, pj)))(*map(jnp.asarray, (t, y, x)))
+        ref = per_lane(lambda a, b, c, g=gj: g.integrand(
+            rj, a, b, c, lam, pj))(*map(jnp.asarray, (t, y, x)))
         port = gt.integrand(rt, *map(torch.as_tensor, (t, y, x)),
                             torch.zeros(12, 0, dtype=torch.float64), pt)
         assert_close(port, ref)

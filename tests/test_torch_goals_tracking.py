@@ -32,7 +32,7 @@ from opensim_moco_tpu_torch import ocp as tocp
 from opensim_moco_tpu_torch.models import MechModelBuilder as TMechModelBuilder
 from opensim_moco_tpu_torch.models.model import Model as TModel
 from test_torch_constrained_common import (check_blocks, check_structure,
-                                           points, rel)
+                                           jax_nlp, per_lane, points, rel)
 from tracking_goals_model import problem
 
 torch.set_num_threads(2)
@@ -69,8 +69,8 @@ def test_goal_integrands_and_locality(transcriptions):
         assert gt.hessian_block_local() == gj.hessian_block_local()
         if gt.name == "marker_final":
             continue
-        ref = jax.jit(jax.vmap(lambda tt, yy, xx, ll: gj.integrand(
-            trj.rep, tt, yy, xx, ll, pj)))(*map(jnp.asarray, (t, Y, X, L)))
+        ref = per_lane(lambda tt, yy, xx, ll: gj.integrand(
+            trj.rep, tt, yy, xx, ll, pj))(*map(jnp.asarray, (t, Y, X, L)))
         got = gt.integrand(trt.rep, *map(torch.as_tensor, (t, Y, X, L)), pt)
         assert rel(got, ref) <= 1e-12, gt.name
     # the final-marker goal's value at endpoints (both forms)
@@ -78,8 +78,8 @@ def test_goal_integrands_and_locality(transcriptions):
     fin_t = (torch.as_tensor(t), torch.as_tensor(Y))
     for squared in (True, False):
         gj.squared = gt.squared = squared
-        ref = jax.jit(jax.vmap(lambda tt, yy: gj.value(
-            trj.rep, (tt, yy), (tt, yy), 0.0, pj)))(jnp.asarray(t),
+        ref = per_lane(lambda tt, yy: gj.value(
+            trj.rep, (tt, yy), (tt, yy), 0.0, pj))(jnp.asarray(t),
                                                    jnp.asarray(Y))
         got = gt.value(trt.rep, fin_t, fin_t, 0.0, pt)
         assert rel(got, ref) <= 1e-12
@@ -90,7 +90,7 @@ def test_tracking_problem_objective_and_gradient(transcriptions):
     """f and its gradient at the guess and a jittered point (the goals
     change no constraint), and the batch of both points as each alone."""
     trj, trt = transcriptions
-    nj, nt = trj.make_nlp(), trt.make_nlp("cpu")
+    nj, nt = jax_nlp(trj), trt.make_nlp("cpu")
     f_and_grad_j = jax.jit(jax.value_and_grad(nj.objective))
     pts = points(trt)
     for z in pts:

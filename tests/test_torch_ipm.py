@@ -35,6 +35,7 @@ from opensim_moco_tpu.solver import ipm as jipm
 from opensim_moco_tpu_torch import examples as tex
 from opensim_moco_tpu_torch.parallel import batch_guesses, make_batched_solver
 from opensim_moco_tpu_torch.solver import ipm as tipm
+from test_torch_constrained_common import one_blas_thread, per_lane
 
 torch.set_num_threads(2)
 
@@ -63,12 +64,13 @@ def port_kernel(problem):
 
 @pytest.fixture(scope="module")
 def jax_kernel(problem):
-    """The JAX package's kernel under ``jit(vmap(.))``, compiled once for
-    the iterate-level and the solve-level test."""
+    """The JAX package's kernel lane by lane (``per_lane``: the values of
+    ``jit(vmap(.))``), compiled once for the iterate-level and the
+    solve-level test."""
     trj, _, _, z0 = problem
     kern = jipm.make_kernel(trj.make_nlp(), jipm.IPMOptions(**BENCH),
                             scale_z0=z0)[:4]
-    return tuple(jax.jit(jax.vmap(f)) for f in kern)
+    return tuple(per_lane(f) for f in kern)
 
 
 def _jax_solve(jax_kernel, Z0):
@@ -76,15 +78,16 @@ def _jax_solve(jax_kernel, Z0):
     on the host: a batched ``lax.while_loop`` runs while any lane's
     condition holds and keeps the state of the other lanes."""
     init_j, body_j, cond_j, fin_j = jax_kernel
-    c = init_j(jnp.asarray(Z0))
-    while True:
-        live = cond_j(c)
-        if not bool(live.any()):
-            return jax.device_get(fin_j(c))
-        c = jax.tree_util.tree_map(
-            lambda a, b: jnp.where(
-                live.reshape(live.shape + (1,) * (a.ndim - 1)), a, b),
-            body_j(c), c)
+    with one_blas_thread():
+        c = init_j(jnp.asarray(Z0))
+        while True:
+            live = cond_j(c)
+            if not bool(live.any()):
+                return jax.device_get(fin_j(c))
+            c = jax.tree_util.tree_map(
+                lambda a, b: jnp.where(
+                    live.reshape(live.shape + (1,) * (a.ndim - 1)), a, b),
+                body_j(c), c)
 
 
 def _lane_close(port, ref, name):
@@ -101,10 +104,14 @@ def test_iterate_parity_with_jax(problem, port_kernel, jax_kernel):
     _, _, Z0, _ = problem
     init_j, body_j, _, _ = jax_kernel
     init_t, body_t, _, _ = port_kernel
-    cj, ct = init_j(jnp.asarray(Z0)), init_t(Z0)
+    with one_blas_thread():
+        cj = jax.block_until_ready(init_j(jnp.asarray(Z0)))
+    ct = init_t(Z0)
     for step in range(4):
         if step:
-            cj, ct = body_j(cj), body_t(ct)
+            with one_blas_thread():
+                cj = jax.block_until_ready(body_j(cj))
+            ct = body_t(ct)
         for name in ("z", "nu", "wL", "wU"):
             _lane_close(getattr(ct, name), getattr(cj, name),
                         f"{name} after {step} body steps")

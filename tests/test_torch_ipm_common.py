@@ -36,6 +36,7 @@ from opensim_moco_tpu.solver import ipm as jipm
 from opensim_moco_tpu_torch import examples as tex
 from opensim_moco_tpu_torch.parallel import batch_guesses, make_batched_solver
 from opensim_moco_tpu_torch.solver import ipm as tipm
+from test_torch_constrained_common import one_blas_thread, per_lane
 
 torch.set_num_threads(2)
 
@@ -55,15 +56,15 @@ def make_problem():
 
 
 def make_kernels(problem, mode):
-    """The JAX package's kernel under ``jit(vmap(.))`` and the port's, in
-    the same ``kkt`` mode."""
+    """The JAX package's kernel lane by lane (``per_lane``: the values of
+    ``jit(vmap(.))``) and the port's, in the same ``kkt`` mode."""
     trj, trt, _, z0 = problem
     opts = dict(BENCH, kkt=mode)
     jk = jipm.make_kernel(trj.make_nlp(), jipm.IPMOptions(**opts),
                           scale_z0=z0)[:4]
     tk = tipm.make_kernel(trt.make_nlp("cpu"), tipm.IPMOptions(**opts),
                           scale_z0=z0, device="cpu")
-    return mode, tuple(jax.jit(jax.vmap(f)) for f in jk), tk
+    return mode, tuple(per_lane(f) for f in jk), tk
 
 
 def _lane_close(port, ref, name):
@@ -77,6 +78,11 @@ def _lane_close(port, ref, name):
 
 
 def check_iterate_parity(problem, kernels):
+    with one_blas_thread():
+        _iterate_parity(problem, kernels)
+
+
+def _iterate_parity(problem, kernels):
     _, _, Z0, _ = problem
     _, (init_j, body_j, _, _), (init_t, body_t, _, _) = kernels
     cj, ct = init_j(jnp.asarray(Z0)), init_t(Z0)
@@ -99,14 +105,15 @@ def check_batch_solve_parity(problem, kernels):
     while loop on the host, against the port's batched solver."""
     _, trt, Z0, z0 = problem
     mode, (init_j, body_j, cond_j, fin_j), _ = kernels
-    c = init_j(jnp.asarray(Z0))
-    while bool(cond_j(c).any()):
-        live = cond_j(c)
-        c = jax.tree_util.tree_map(
-            lambda a, b: jnp.where(
-                live.reshape(live.shape + (1,) * (a.ndim - 1)), a, b),
-            body_j(c), c)
-    rj = jax.device_get(fin_j(c))
+    with one_blas_thread():
+        c = init_j(jnp.asarray(Z0))
+        while bool(cond_j(c).any()):
+            live = cond_j(c)
+            c = jax.tree_util.tree_map(
+                lambda a, b: jnp.where(
+                    live.reshape(live.shape + (1,) * (a.ndim - 1)), a, b),
+                body_j(c), c)
+        rj = jax.device_get(fin_j(c))
     rt = make_batched_solver(trt, tipm.IPMOptions(**BENCH, kkt=mode), "cpu",
                              scale_z0=z0)(Z0)
     conv_j = np.asarray(rj.converged)

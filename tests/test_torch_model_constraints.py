@@ -25,6 +25,7 @@ from opensim_moco_tpu.models.model import Model as JModel
 from opensim_moco_tpu_torch.convert import params_from_numpy
 from opensim_moco_tpu_torch.models import MechModelBuilder as TBuilder
 from opensim_moco_tpu_torch.models.model import Model as TModel
+from test_torch_constrained_common import per_lane
 
 torch.set_num_threads(2)
 
@@ -80,14 +81,14 @@ def evaluate(jm, tm, inp):
     lam_t = T["lam"] if tm.nphi else None
     return [
         (tm.applied_generalized_forces(pt, *[T[a] for a in args]),
-         jax.vmap(lambda *a: jm.applied_generalized_forces(pj, *a))(
+         per_lane(lambda *a: jm.applied_generalized_forces(pj, *a))(
              *[J[a] for a in args])),
         (tm.multibody_explicit(pt, *[T[a] for a in args], lam_t),
-         jax.vmap(lambda *a: jm.multibody_explicit(pj, *a))(
+         per_lane(lambda *a: jm.multibody_explicit(pj, *a))(
              *[J[a] for a in args + ("lam",)])),
         (tm.multibody_implicit_residual(pt, *[T[a] for a in args], lam_t,
                                         T["udot"]),
-         jax.vmap(lambda *a: jm.multibody_implicit_residual(pj, *a))(
+         per_lane(lambda *a: jm.multibody_implicit_residual(pj, *a))(
              *[J[a] for a in args + ("lam", "udot")])),
     ]
 
@@ -162,9 +163,9 @@ def test_kinematic_constraint_parity(kind):
     pt = params_from_numpy(jax.device_get(pj), "cpu")
     inp = inputs(jm, 2)
     q = torch.as_tensor(inp["q"])
-    assert_close(tm.phi(pt, q), jax.vmap(lambda a: jm.phi(pj, a))(
+    assert_close(tm.phi(pt, q), per_lane(lambda a: jm.phi(pj, a))(
         jnp.asarray(inp["q"])))
-    assert_close(tm.constraint_jacobian(pt, q), jax.vmap(
+    assert_close(tm.constraint_jacobian(pt, q), per_lane(
         lambda a: jm.constraint_jacobian(pj, a))(jnp.asarray(inp["q"])))
     for port, ref in evaluate(jm, tm, inp):
         assert_close(port, ref)

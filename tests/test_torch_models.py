@@ -27,6 +27,7 @@ from opensim_moco_tpu_torch.convert import params_from_numpy
 from opensim_moco_tpu_torch.models import MechModelBuilder as TMechModelBuilder
 from opensim_moco_tpu_torch.models import muscle as tdgf
 from opensim_moco_tpu_torch.models.model import Model as TModel
+from test_torch_constrained_common import per_lane
 
 torch.set_num_threads(2)
 
@@ -138,7 +139,7 @@ def test_mech_dynamics_parity(name):
     q, u, ud, tau = (rng.standard_normal((P, jm.nq)) for _ in range(4))
 
     def jv(fn, *args):
-        return jax.vmap(fn)(*[jnp.asarray(a) for a in args])
+        return per_lane(fn)(*[jnp.asarray(a) for a in args])
 
     assert_close(tm.rnea(pt, t(q), t(u), t(ud)),
                  jv(lambda a, b, c: jm.rnea(pj, a, b, c), q, u, ud))
@@ -261,7 +262,7 @@ def test_dgf_parity(case):
     xt = {k: t(v) for k, v in x.items()}
     if case == "linearized_equilibrium_residual_derivative":
         # the JAX function takes one point at a time (grad of a sum)
-        ref = jax.vmap(lambda xx, L: fn(jdgf, pj, xx, L))(xj,
+        ref = per_lane(lambda xx, L: fn(jdgf, pj, xx, L))(xj,
                                                           jnp.asarray(lMT))
     else:
         ref = fn(jdgf, pj, xj, jnp.asarray(lMT))
@@ -315,7 +316,7 @@ def test_hanging_model_parity(variant):
     tt = np.zeros(P)
 
     def jv(fn, *args):
-        return jax.vmap(fn)(*[jnp.asarray(a) for a in args])
+        return per_lane(fn)(*[jnp.asarray(a) for a in args])
 
     T = [t(a) for a in (tt, q, u, zz, x, ud, zeta)]
     tt_, q_, u_, z_, x_, ud_, ze_ = T
@@ -361,27 +362,3 @@ def test_hanging_model_parity(variant):
                 assert a is None
             else:
                 assert_close(a, b)
-
-
-@pytest.mark.parametrize("method,args", [
-    # the ids the cases had while contacts were listed here too
-    pytest.param("add_external_force", ("e", 0, None, None),
-                 id="add_external_force-args2"),
-    pytest.param("add_custom_control_force", ("f", None),
-                 id="add_custom_control_force-args3"),
-])
-def test_unported_model_components_raise(method, args):
-    model = TModel(_hanging_slider(TMechModelBuilder))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(model, method)(*args)
-
-
-def test_unported_path_features_raise():
-    model = TModel(_hanging_slider(TMechModelBuilder))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.add_muscle("m", [("fixed", -1, (0, 0, 0)),
-                               ("conditional", 0, (0, 0, 0), 0, 0.0, 1.0),
-                               ("fixed", 0, (0, 0, 0))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.add_muscle("m", [(-1, (0, 0, 0)), (0, (0, 0, 0))],
-                         wraps=((None, (0,)),))

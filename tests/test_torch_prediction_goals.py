@@ -36,7 +36,7 @@ from opensim_moco_tpu_torch.models import MechModelBuilder as TMechModelBuilder
 from opensim_moco_tpu_torch.models.model import Model as TModel
 from test_torch_constrained_common import (check_functions,
                                            check_iterate_parity, check_layout,
-                                           check_structure)
+                                           check_structure, jax_nlp)
 
 torch.set_num_threads(2)
 
@@ -96,7 +96,7 @@ def test_prediction_goals_functions_and_structure(case):
     trj, trt = problem(JAX, case), problem(PORT, case)
     check_layout(trj, trt)
     check_functions(trj, trt)
-    nj, nt = trj.make_nlp(), trt.make_nlp("cpu")
+    nj, nt = jax_nlp(trj), trt.make_nlp("cpu")
     # the cold guess: the same q at both ends, no displacement
     z0 = trt.initial_guess()
     Y = z0[trt.offsets["states"][0]:trt.offsets["states"][1]].reshape(

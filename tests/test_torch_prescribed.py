@@ -22,7 +22,8 @@ import pytest
 import torch
 
 from test_torch_constrained_common import (check_blocks, check_functions,
-                                           check_layout, check_structure, rel)
+                                           check_layout, check_structure,
+                                           per_lane, rel)
 from test_torch_inverse_common import transcriptions
 
 PROBLEMS = ("hanging", "hanging_activation_effort", "arm", "arm_coupler")
@@ -46,7 +47,7 @@ def test_point_constants_and_cached_residual(pair):
     mj, mt = trj.rep.model, trt.rep.model
     ts = np.asarray(trj.taus)  # the window is [0, 1]
     pj = trj.rep.apply_parameters(jnp.zeros(0))
-    cj = jax.vmap(lambda t: mj.prescribed_point_constants(pj, t))(
+    cj = per_lane(lambda t: mj.prescribed_point_constants(pj, t))(
         jnp.asarray(ts))
     pt = mt.default_params("cpu")
     ct = mt.prescribed_point_constants(pt, torch.as_tensor(ts))
@@ -58,7 +59,7 @@ def test_point_constants_and_cached_residual(pair):
     z = rng.uniform(0.05, 1.0, (G, mt.naux))
     x = rng.uniform(0.05, 1.0, (G, mt.nx))
     lam = rng.standard_normal((G, mt.nphi))
-    rj = jax.vmap(lambda c, a, b, e: mj.prescribed_residual_cached(
+    rj = per_lane(lambda c, a, b, e: mj.prescribed_residual_cached(
         pj, c, a, b, e))(cj, jnp.asarray(z), jnp.asarray(x), jnp.asarray(lam))
     rt = mt.prescribed_residual_cached(
         pt, ct, *(torch.as_tensor(a) for a in (z, x, lam)))
