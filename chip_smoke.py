@@ -6,16 +6,21 @@ through ``opensim_moco_tpu_torch.parallel.make_batched_solver``, in
 float64, at the bench configuration: Hermite-Simpson at 25 mesh
 intervals, 32 jittered starts, the bench's IPM options. So that the whole
 script stays under 20 minutes, the bench's ``max_iter`` of 200 is cut to
-40 (phases 2-9), 50 (phase 5), 30 (phase 11) and 6 (phase 17: its lanes'
-convergence is recorded, not held; phase 19 solves the same leg to
-convergence through ``Track``), ``Track``'s 2000 to 200 (phase 19), 10
-(phase 20: lane 0 converges in 8), the JAX bench's gait2d lane's 250 to
+40 (phases 2-9), 50 (phase 5), 15 (phase 11: no lane converges under
+chol-schur) and 3 (phase 17: its lanes' convergence is recorded, not
+held; phase 19 solves the same leg to convergence through ``Track``),
+``Track``'s 2000 to 200 (phase 19), 5 (phase 20: its convergence is
+reported, not held), the JAX bench's gait2d lane's 250 to
 ``WALKER_MAX_ITER`` (phase 22: lane 0 converges in 90), the JAX
 package's gait2d prediction's 1000 to ``WALKER_PREDICT_MAX_ITER`` (phase
 24: its convergence is reported, not held), the ``Inverse`` tool's 2000
-to ``WALKER_INVERSE_MAX_ITER`` (phase 27), and
-the card-against-CPU checks of phases 18, 21, 23 and 25 take 2 steps in
-place of 3: a lane left at ``max_iter`` holds its batch to the end.
+to ``WALKER_INVERSE_MAX_ITER`` (phase 27), and the walker's ``Track``
+study's 250 to ``WALKER_STUDY_MAX_ITER`` (phase 31); the card-against-CPU
+checks of phases 18, 21, 23 and 25 take 2 steps in place of 3; and K1's
+checks on Newton systems above ``LARGE_KKT_DIM`` rows time the kernels
+over 10 calls and the plain and library versions over 1, after a
+warm-up call: a lane left at ``max_iter`` holds its batch to the end,
+and a library LU of the walker inverse's 8 lanes takes 7 s.
 
 Phases, one report line each:
 
@@ -118,7 +123,7 @@ goals), on the planar contact leg of ``example_models/contact_leg.py``
     ``objective-only`` curvature (as the JAX bench's gait2d lane),
     ``kkt="structured"`` (every factor and solve through K1), with n, m,
     K1's shape (N, the padded nb, the inner blocks' width and k) and
-    launches (at ``max_iter`` 6 no lane converges: the count is
+    launches (at ``max_iter`` 3 no lane converges: the count is
     reported, not held); then K1 against its plain version on this
     lane's first Newton blocks;
 18. card against CPU for lanes 0-3 of phase 17 as in phase 14 (each of 2
@@ -141,7 +146,7 @@ the tool's 2000 to 200:
     launches; then K1 against its plain version on this lane's first
     Newton blocks;
 20. the same lane with ``hessian_approximation="exact"``, lanes 0-7,
-    ``max_iter`` 10: lanes, strict lanes, iterations and final KKT
+    ``max_iter`` 5: lanes, strict lanes, iterations and final KKT
     errors, reported, not gated (it fails on a non-finite iterate or a K1
     disagreement on its first Newton blocks only);
 21. card against CPU for lanes 0-3 of phase 19 as in phase 14 (each of 2
@@ -232,15 +237,57 @@ tool's options and its ``max_iter`` of 2000 cut to
     and the exact Lagrangian's H blocks at two points with random
     multipliers.
 
+The ``Study``'s guesses, solution files, diagnostics and chunked solves
+(``Study.create_guess``, ``create_guess_from_file``,
+``objective_breakdown``, ``print_constraint_values``, ``analyze``, and
+``solve``'s ``checkpoint_interval``, ``checkpoint_path`` and
+``interrupt_file`` through ``make_chunked_solver``):
+
+30. Kirk's problem (phase 12's, mesh 50, tol 1e-7, ``kkt="structured"``)
+    through ``Study.solve`` (B=1): checkpointed every 5 iterations it
+    converges to the analytic states (1e-5) and writes its .sto; a warm
+    start from that file (``create_guess_from_file``) converges in at
+    most 2 more iterations to the objective within 1e-6; with the
+    interrupt file gone and chunks of 3 the solve stops by iteration 6
+    (the JAX package's ``tests/test_checkpointing.py``); K1 against its
+    plain version on its first Newton blocks. Then the bench lane
+    (phases 2-9's problem): ``create_guess`` of each kind on the card
+    against the CPU (bounds and random equal, time-stepping within 1e-9,
+    finite, inside the bounds), and at phase 7's lane 0 (without phase
+    7, the first jittered start) ``objective_breakdown``, the constraint
+    report (relative to at least 1: a violation near a solution is a
+    cancellation of larger terms) and ``analyze`` (the forward dynamics'
+    acceleration and the muscle's path length and rate) within 1e-10;
+31. the walker's ``Track`` study (phase 22's, mesh 50) through
+    ``Study.solve`` from ``make_guess``, B=1, phase 22's options with
+    ``max_iter`` ``WALKER_STUDY_MAX_ITER``: checkpointed every 5
+    iterations against one plain solve (the same iterations and KKT
+    error, z within 1e-12), the checkpoint read back by
+    ``sto_to_trajectory`` to the returned solution (1e-14); phase 22's
+    lane 0 (without phase 22, this phase's solution) written by
+    ``trajectory_to_sto`` and taken back by ``create_guess_from_file``
+    (states, controls, multipliers and derivatives within 1e-12), and a
+    warm solve from it (iterations, KKT error, seconds per iteration,
+    reported); at that iterate the diagnostics on the card against the
+    CPU within 1e-10 (the report relative to at least 1, as in phase 30;
+    outputs: a muscle's activation and the right
+    foot's contact force as ``ContactTrackingGoal`` sums it), the
+    breakdown summing to ``objective_fn`` there within 1e-10; the
+    time-stepping guess on the card, finite, and within 1e-8 of the CPU's
+    rollout over the first 10 grid intervals, with both times; K1 against
+    its plain version on the lane's first Newton blocks (B=1).
+
 The line before the last lists each kernel with its launches on the main
 path, its error against the plain version, and its times beside its
 bound, at shape (a), and under a key that names shape (b) the same times
 at shape (b), which the main path does not launch; the solve also under
 a key for its 1-column times at shape (a); and under a key per shape the
 same numbers for the Newton blocks of phases 10 and 13, with the
-launches of that phase's solve (phases 10, 13, 15, 16, 17, 19, 20, 22
-and 27; the ``Track`` lanes' keys start with ``track_``, the walker's with
-``walker_track_``, its inverse's with ``walker_inverse_``). The line
+launches of that phase's solve (phases 10, 13, 15, 16, 17, 19, 20, 22,
+27, 30 and 31; the ``Track`` lanes' keys start with ``track_``, the
+walker's with ``walker_track_``, its inverse's with ``walker_inverse_``,
+phase 30's with ``study_kirk_`` and phase 31's with ``walker_study_``,
+each with the launches of the phase's checkpointed solve). The line
 before it
 gives each phase's wall seconds. The last line of standard output is the result object.
 Run from the root of the repository::
@@ -251,8 +298,9 @@ Run from the root of the repository::
 loop to iterate on the kernel with; ``--phases 15,16`` runs the inverse
 problems, ``--phases 17,18`` the contact leg, ``--phases 19,20,21``
 the ``Track`` tool, ``--phases 22,23`` the walker and
-``--phases 22,24,25,26`` its prediction and ``--phases 27,28,29`` its
-inverse.
+``--phases 22,24,25,26`` its prediction, ``--phases 27,28,29`` its
+inverse and ``--phases 30,31`` the ``Study``'s conveniences (phase 31
+round-trips phase 22's solution when it runs: ``--phases 22,31``).
 """
 
 import argparse
@@ -261,7 +309,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -281,16 +331,20 @@ HUGE_KKT_DIM = 10000
 # converges in 90 iterations, on the CPU as on the card; the jittered
 # lanes hold the batch to the cap, which leaves room for phases 27-29)
 WALKER_B = 4
-WALKER_MAX_ITER = 95
+WALKER_MAX_ITER = 92
 # the walker's prediction (phase 24): the JAX package's max_iter of 1000
 # cut (its convergence is reported, not held)
-WALKER_PREDICT_MAX_ITER = 15
+WALKER_PREDICT_MAX_ITER = 5
 # the walker's inverse (phase 27): its batch and the Inverse tool's
 # max_iter of 2000 cut (its 8 lanes converge in 30-33 iterations)
 WALKER_INVERSE_B = 8
 WALKER_INVERSE_MAX_ITER = 50
 # phase 29: the wrapping walker's quantities, card against CPU
 MODEL_RTOL = 1e-10
+# phase 31: the walker's Track study through Study.solve, each solve's
+# iteration cap (the chunked and the plain solve are compared iterate for
+# iterate, the warm start's convergence is reported)
+WALKER_STUDY_MAX_ITER = 10
 COUNTERS = ("mu", "it", "converged", "filter_count", "acceptable_count",
             "rescue_count", "stall_count", "mu_wait")
 
@@ -803,7 +857,7 @@ def _newton_k1(torch, label, tr, opts, Z0, launches, z0=None):
         torch, tr, opts, tr.initial_guess() if z0 is None else z0, Z0)
     D, _, _, C = blocks
     big = D.shape[1] * D.shape[2] + C.shape[-1] > LARGE_KKT_DIM
-    res = _check_btb(torch, *blocks, (1,), 1, 20 if big else 200)
+    res = _check_btb(torch, *blocks, (1,), 1, 10 if big else 200)
     res["plain_factor_spread"] = _factor_spread(torch, *blocks)
     sh = res["shape"]
     key = f"B{sh['B']}_N{sh['N']}_nb{sh['nb']}_k{sh['k']}"
@@ -1103,6 +1157,222 @@ def _joint_reaction_goal_parity(torch, walker2d_track_study):
                                  for k in cpu}}
 
 
+def _rel_dict(card, cpu, floor=1e-300):
+    """max |card - cpu| over the keys of two {name: float} dicts, relative
+    to the CPU's largest magnitude or ``floor``, the larger (keys must
+    agree)."""
+    if list(card) != list(cpu):
+        _fail(f"the card's keys {list(card)} differ from the CPU's "
+              f"{list(cpu)}")
+    scale = max([abs(v) for v in cpu.values()] + [floor])
+    return max([abs(card[k] - cpu[k]) for k in cpu] + [0.0]) / scale
+
+
+def _diagnostics_parity(study, sol, outputs):
+    """``Study.objective_breakdown``, ``print_constraint_values`` (its
+    report, printed quietly) and ``analyze`` of ``outputs`` at ``sol`` on
+    the card against the CPU: each one's largest difference relative to
+    the CPU's largest magnitude (the report's to at least 1), and the
+    card's breakdown and report."""
+    import contextlib
+    import io
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            got[dev] = (study.objective_breakdown(sol, dev),
+                        study.print_constraint_values(sol, dev),
+                        study.analyze(sol, outputs, dev))
+    (bc, cc, ac), (bp, cp, ap) = got["cuda"], got["cpu"]
+    if ac.column_names != ap.column_names:
+        _fail(f"analyze's columns differ: {ac.column_names}, "
+              f"{ap.column_names}")
+    return {"breakdown": bc, "constraint_report": cc,
+            "analyze_columns": ac.column_names,
+            "max_rel_err": {
+                "objective_breakdown": _rel_dict(bc, bp),
+                # a violation near a solution is a cancellation of terms
+                # of order 1 and more, whose rounding is not small next
+                # to it: its differences are taken relative to at least 1
+                "constraint_report": _rel_dict(cc, cp, floor=1.0),
+                "analyze": float(np.abs(ac.data - ap.data).max() /
+                                 max(np.abs(ap.data).max(), 1e-300)),
+                "analyze_time": float(np.abs(ac.time - ap.time).max())}}
+
+
+def _guess_parity(torch, study):
+    """``create_guess`` of each kind on the card against the CPU: bounds
+    and random (seed 3) equal exactly; the time-stepping guess's largest
+    difference relative to its magnitude, its seconds on each device,
+    whether it is finite and inside the bounds."""
+    tr = study.transcription()
+    lb, ub = tr.bounds()
+    out = {}
+    for kind, seed in (("bounds", 0), ("random", 3)):
+        out[f"{kind}_equal"] = bool(np.array_equal(
+            study.create_guess(kind, seed=seed),
+            study.create_guess(kind, seed=seed, device="cpu")))
+    zs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        zs[dev] = study.create_guess("time-stepping", device=dev)
+        out[f"time_stepping_s_{dev}"] = time.perf_counter() - t0
+    z = zs["cuda"]
+    out["time_stepping_rel_err"] = float(
+        np.abs(z - zs["cpu"]).max() / np.abs(zs["cpu"]).max())
+    out["time_stepping_finite"] = bool(np.isfinite(z).all())
+    out["time_stepping_in_bounds"] = bool(((z >= lb) & (z <= ub)).all())
+    return out
+
+
+def _study_kirk(torch, tmp, study):
+    """Phase 30's checks on Kirk's problem (the JAX package's
+    ``tests/test_checkpointing.py``): a solve checkpointed every 5
+    iterations converges and writes its file; a warm start from the file
+    converges in at most 2 more iterations to the objective within 1e-6;
+    with the interrupt file gone and chunks of 3 the solve stops by
+    iteration 6. Returns the report and the launches of the checkpointed
+    solve."""
+    from opensim_moco_tpu_torch.ops.btb import LAUNCHES
+
+    path = os.path.join(tmp, "kirk.sto")
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    sol = study.solve(checkpoint_interval=5, checkpoint_path=path)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    out = {"converged": sol.success, "iterations": sol.num_iterations,
+           "objective": sol.objective, "wall_s": time.perf_counter() - t0,
+           "launches": launches, "file_written": os.path.exists(path),
+           "max_state_err": float(np.abs(
+               sol.states[:, :2] - kirk_expected(sol.time)).max())}
+    t0 = time.perf_counter()
+    warm = study.solve(guess=study.create_guess_from_file(path))
+    out["warm"] = {"converged": warm.success,
+                   "iterations": warm.num_iterations,
+                   "objective_diff": abs(warm.objective - sol.objective),
+                   "wall_s": time.perf_counter() - t0}
+    stop = os.path.join(tmp, "keep_running.txt")  # never made: gone
+    long = dataclasses.replace(study.ipm_options, tol=1e-12, max_iter=10000)
+    short = study.ipm_options
+    study.ipm_options = long
+    try:
+        cut = study.solve(checkpoint_interval=3, interrupt_file=stop)
+    finally:
+        study.ipm_options = short
+    out["interrupted_iterations"] = cut.num_iterations
+    return out, launches
+
+
+def _walker_study(torch, tmp, study, guess, warm_src=None):
+    """Phase 31's checks on the walker's ``Track`` study through
+    ``Study.solve`` (B=1, the study's options): the checkpointed and the
+    plain solve of ``max_iter`` iterations; the checkpoint read back;
+    ``warm_src`` (a ``Solution``; None: the checkpointed solve's) written
+    with ``trajectory_to_sto`` and taken back by
+    ``create_guess_from_file``, then a warm solve from it; the diagnostics
+    at that iterate on the card against the CPU; the time-stepping guess.
+    Returns the report and the launches of the checkpointed solve."""
+    from opensim_moco_tpu_torch.ops.btb import LAUNCHES
+    from opensim_moco_tpu_torch.utils.rollout import rollout
+    from opensim_moco_tpu_torch.utils.tables import (sto_to_trajectory,
+                                                     trajectory_to_sto)
+
+    tr = study.transcription()
+    out = {}
+    path = os.path.join(tmp, "walker.sto")
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    chunked = study.solve(guess=guess, checkpoint_interval=5,
+                          checkpoint_path=path)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    out["chunked"] = {"iterations": chunked.num_iterations,
+                      "kkt_error": chunked.kkt_error,
+                      "wall_s": time.perf_counter() - t0,
+                      "launches": launches}
+    t0 = time.perf_counter()
+    plain = study.solve(guess=guess)
+    torch.cuda.synchronize()
+    out["plain"] = {"iterations": plain.num_iterations,
+                    "kkt_error": plain.kkt_error,
+                    "wall_s": time.perf_counter() - t0}
+    out["chunked_vs_plain_z_rel_err"] = float(
+        np.abs(chunked.raw_iterate - plain.raw_iterate).max() /
+        np.abs(plain.raw_iterate).max())
+    back = sto_to_trajectory(path)
+    out["checkpoint_rel_err"] = max(
+        float(np.abs(getattr(back, k) - getattr(chunked, k)).max() /
+              max(np.abs(getattr(chunked, k)).max(), 1e-300))
+        if getattr(chunked, k).size else 0.0
+        for k in ("states", "controls", "multipliers"))
+    # the .sto round trip of a solution, back through a guess file
+    if warm_src is None:
+        warm_src = chunked
+    warm_src.unseal()
+    path = os.path.join(tmp, "solution.sto")
+    trajectory_to_sto(warm_src, path)
+    z = study.create_guess_from_file(path)
+    o = tr.offsets
+    blocks = [slice(*o[k]) for k in ("states", "controls", "multipliers",
+                                     "derivs")]
+    ref = warm_src.raw_iterate
+    out["round_trip"] = {"max_abs_err": max(
+        float(np.abs(z[b] - ref[b]).max()) for b in blocks
+        if b.stop > b.start)}
+    t0 = time.perf_counter()
+    warm = study.solve(guess=z)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["warm"] = {"iterations": warm.num_iterations,
+                   "kkt_error": warm.kkt_error, "converged": warm.success,
+                   "wall_s": dt,
+                   "s_per_iteration": dt / max(1, warm.num_iterations)}
+    # the diagnostics at the source's iterate
+    m = tr.rep.model
+    act = tr.rep.state_index(f"/forceset/{m.muscles[0].name}/activation")
+    feet = ("contactHeel_r", "contactFront_r")
+
+    def activation(rep, t, y, x, lam, p):
+        return y[..., act]
+
+    def right_grf(rep, t, y, x, lam, p):
+        forces = rep.model.contact_forces(p, t, y[..., :rep.model.nq],
+                                          y[..., rep.model.nq:
+                                            2 * rep.model.nq])
+        return sum(forces[n] for n in feet)
+
+    diag = _diagnostics_parity(study, warm_src, {
+        "activation": activation, "right_grf": right_grf})
+    f = float(tr.objective_fn("cpu")(torch.as_tensor(ref)))
+    diag["breakdown_sum_rel_err"] = abs(
+        sum(diag["breakdown"].values()) - f) / abs(f)
+    out["diagnostics"] = diag
+    # the time-stepping guess: the whole rollout on the card, the first 10
+    # grid intervals of the same rollout on the CPU
+    t0 = time.perf_counter()
+    zt = study.create_guess("time-stepping")
+    out_ts = {"wall_s_cuda": time.perf_counter() - t0,
+              "finite": bool(np.isfinite(zt).all())}
+    t0v, tfv, Y, X, _, _, _, _, _, _ = tr.unpack(tr.initial_guess())
+    ts = t0v + (tfv - t0v) * np.asarray(tr.taus)
+    G = min(11, tr.G)
+    t0 = time.perf_counter()
+    ys = rollout(m, m.default_params("cpu"), ts[:G], X[:G],
+                 torch.as_tensor(Y[0])).numpy()
+    out_ts["wall_s_cpu_first_intervals"] = time.perf_counter() - t0
+    lb, ub = (a[slice(*tr.offsets["states"])].reshape(tr.G, tr.ny)[:G]
+              for a in tr.bounds())
+    ycpu = np.clip(ys, lb, ub)
+    ycard = tr.unpack(zt)[2][:G]
+    out_ts["first_intervals_rel_err"] = float(np.abs(ycard - ycpu).max() /
+                                              np.abs(ycpu).max())
+    out["time_stepping"] = out_ts
+    return out, launches
+
+
 def _check_lanes(name, stats):
     if stats["converged"] == 0:
         _fail(f"{name}: no lane converged")
@@ -1117,7 +1387,7 @@ def main():
                     "JSON file")
     ap.add_argument("--phases",
                     default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                    "19,20,21,22,23,24,25,26,27,28,29",
+                    "19,20,21,22,23,24,25,26,27,28,29,30,31",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1257,6 +1527,7 @@ def main():
             _fail("phase 6: the least-squares start did not go through K1")
 
     # ---- phase 7: full-dynamics lane, kkt="structured" (K1 throughout)
+    res7 = None
     if 7 in phases:
         phase_start[7] = time.perf_counter()
         res7, stats7 = _solve_lane(torch, tr, opts_st, z0, Z0, dev,
@@ -1394,11 +1665,11 @@ def main():
     if 11 in phases:
         phase_start[11] = time.perf_counter()
         # no lane converges under chol-schur (8 of 8 ran to max_iter 200)
-        opts11 = dataclasses.replace(opts10, kkt="dense", max_iter=30,
+        opts11 = dataclasses.replace(opts10, kkt="dense", max_iter=15,
                                      dense_factorization="chol-schur")
         res11, stats11 = _solve_lane(torch, tr10, opts11, z10, Z10[:8], dev)
         print("phase 11 swing-up, kkt=dense chol-schur (mesh 25, B=8, "
-              "max_iter 30, f64, cuda): " + json.dumps(stats11), flush=True)
+              "max_iter 15, f64, cuda): " + json.dumps(stats11), flush=True)
         out["swingup_chol_schur"] = stats11
         if res10 is not None:
             both = res10.converged[:8].cpu().numpy() & \
@@ -1578,7 +1849,7 @@ def main():
         # bench's gait2d lane (bench.py:106-110): from the jittered
         # bounds-midpoint starts the exact Hessian's contact curvature
         # drives the regularization up until steps stall
-        opts17 = IPMOptions(max_iter=6, kkt="structured",
+        opts17 = IPMOptions(max_iter=3, kkt="structured",
                             hessian_approximation="objective-only", **bench)
     if 17 in phases:
         phase_start[17] = time.perf_counter()
@@ -1656,14 +1927,14 @@ def main():
         newton["track_" + key] = chk
     if 20 in phases:
         phase_start[20] = time.perf_counter()
-        opts20 = dataclasses.replace(opts19, max_iter=10,
+        opts20 = dataclasses.replace(opts19, max_iter=5,
                                      hessian_approximation="exact")
         res20, stats20 = _solve_lane(torch, tr19, opts20, g19, Z19[:8], dev,
                                      LAUNCHES)
         stats20["kkt_error"] = res20.kkt_error.cpu().tolist()
         stats20["iterations"] = res20.iterations.cpu().tolist()
         print("phase 20 contact leg Track, exact Hessian, kkt=structured "
-              "(mesh 50, B=8, max_iter 10, f64, cuda; reported, not gated): "
+              "(mesh 50, B=8, max_iter 5, f64, cuda; reported, not gated): "
               + json.dumps(stats20), flush=True)
         out["contact_leg_track_exact"] = stats20
         key, chk = _newton_k1(torch, "phase 20 contact leg Track exact",
@@ -1874,8 +2145,127 @@ def main():
         if worst > MODEL_RTOL:
             _fail(f"phase 29: card and CPU disagree by {worst}")
 
-    # the K1 checks of phases 10, 13, 15, 16, 17, 19, 20, 22 and 27 join the
-    # kernels line by shape
+    # ---- phase 30: the Study's checkpoints, guesses and diagnostics
+    if 30 in phases:
+        phase_start[30] = time.perf_counter()
+        st30 = kirk_min_effort_study(50)
+        st30.set_ipm_options(tol=1e-7, max_iter=200, kkt="structured")
+        with tempfile.TemporaryDirectory() as tmp:
+            kirk30, launches30 = _study_kirk(torch, tmp, st30)
+        print("phase 30 Kirk Study.solve checkpointed every 5, warm start "
+              "from the file, interrupt file gone (mesh 50, B=1, tol 1e-7, "
+              "kkt=structured, cuda): " + json.dumps(kirk30), flush=True)
+        out["study_kirk"] = kirk30
+        if not kirk30["converged"] or not kirk30["file_written"] or \
+                kirk30["max_state_err"] > 1e-5:
+            _fail("phase 30: Kirk's checkpointed solve did not converge to "
+                  "the analytic states or wrote no file")
+        w = kirk30["warm"]
+        if not w["converged"] or \
+                w["iterations"] > kirk30["iterations"] + 2 or \
+                w["objective_diff"] >= 1e-6:
+            _fail(f"phase 30: the warm start from the checkpoint: {w}")
+        if kirk30["interrupted_iterations"] > 6:
+            _fail("phase 30: the solve ran past its first chunks with the "
+                  "interrupt file gone")
+        if min(launches30.values()) == 0:
+            _fail(f"phase 30: a kernel of the path never launched: "
+                  f"{launches30}")
+        tr30 = st30.transcription()
+        z30 = tr30.initial_guess()
+        key, chk = _newton_k1(torch, "phase 30 Kirk Study", tr30,
+                              st30.ipm_options, z30[None], launches30,
+                              z0=z30)
+        newton["study_kirk_" + key] = chk
+        # the bench lane: the guesses and the diagnostics, card and CPU
+        st30b = hanging_muscle_study(25, ignore_tendon_compliance=False,
+                                     ignore_activation_dynamics=False,
+                                     tendon_dynamics_implicit=True)
+        tr30b = st30b.transcription()
+        bench30 = _guess_parity(torch, st30b)
+        if res7 is not None:
+            bench30["iterate"] = "phase 7 lane 0"
+            sol30 = _expand_lane(st30b, tr30b, res7, 0)
+        else:
+            bench30["iterate"] = "the first jittered start"
+            sol30 = types.SimpleNamespace(raw_iterate=Z0[0])
+        nq = tr30b.rep.model.nq
+
+        def accel(rep, t, y, x, lam, p):
+            q, u, z = rep.model.split_state(y)
+            udot = rep.model.multibody_explicit(p, t, q, u, z, x, lam)
+            return udot[..., 0]
+
+        def path(rep, t, y, x, lam, p):
+            return torch.cat(rep.model.muscle_path_kinematics(
+                p, y[..., :nq], y[..., nq:2 * nq]), -1)
+
+        bench30["diagnostics"] = _diagnostics_parity(
+            st30b, sol30, {"accel": accel, "path": path})
+        print("phase 30 bench lane create_guess, objective_breakdown, "
+              "constraint_report and analyze cuda vs cpu (mesh 25): "
+              + json.dumps(bench30), flush=True)
+        out["study_bench"] = bench30
+        if not bench30["bounds_equal"] or not bench30["random_equal"] or \
+                bench30["time_stepping_rel_err"] > 1e-9 or \
+                not bench30["time_stepping_finite"] or \
+                not bench30["time_stepping_in_bounds"]:
+            _fail("phase 30: the bench lane's guesses on the card and the "
+                  "CPU disagree")
+        if max(bench30["diagnostics"]["max_rel_err"].values()) > \
+                KERNEL_RTOL:
+            _fail("phase 30: the bench lane's diagnostics on the card and "
+                  "the CPU disagree")
+
+    # ---- phase 31: the walker's Track study through Study.solve
+    if 31 in phases:
+        phase_start[31] = time.perf_counter()
+        st31, g31 = walker2d_track_study(50)
+        st31.ipm_options = dataclasses.replace(
+            opts22, max_iter=WALKER_STUDY_MAX_ITER)
+        warm31 = None
+        if res22 is not None:
+            warm31 = _expand_lane(st22, tr22, res22, 0)
+        with tempfile.TemporaryDirectory() as tmp:
+            walker31, launches31 = _walker_study(torch, tmp, st31, g31,
+                                                 warm31)
+        walker31["round_trip"]["source"] = (
+            "phase 22 lane 0" if warm31 is not None
+            else "this phase's checkpointed solve")
+        print(f"phase 31 walker Track through Study.solve (mesh 50, B=1, "
+              f"max_iter {WALKER_STUDY_MAX_ITER}, phase 22's options, "
+              "cuda): " + json.dumps(walker31), flush=True)
+        out["walker_study"] = walker31
+        c, p = walker31["chunked"], walker31["plain"]
+        if c["iterations"] != p["iterations"] or \
+                c["kkt_error"] != p["kkt_error"] or \
+                walker31["chunked_vs_plain_z_rel_err"] > 1e-12:
+            _fail("phase 31: the chunked and the plain solve differ")
+        if walker31["checkpoint_rel_err"] > 1e-14:
+            _fail("phase 31: the checkpoint does not read back to the "
+                  "solution")
+        if walker31["round_trip"]["max_abs_err"] > 1e-12:
+            _fail("phase 31: the .sto round trip moved the iterate")
+        d = walker31["diagnostics"]
+        if max(d["max_rel_err"].values()) > KERNEL_RTOL or \
+                d["breakdown_sum_rel_err"] > KERNEL_RTOL:
+            _fail("phase 31: the walker's diagnostics on the card and the "
+                  "CPU disagree")
+        ts31 = walker31["time_stepping"]
+        if not ts31["finite"] or ts31["first_intervals_rel_err"] > 1e-8:
+            _fail("phase 31: the walker's time-stepping guess on the card "
+                  "and the CPU disagree")
+        if min(launches31.values()) == 0:
+            _fail(f"phase 31: a kernel of the path never launched: "
+                  f"{launches31}")
+        tr31 = st31.transcription()
+        key, chk = _newton_k1(torch, "phase 31 walker Study", tr31,
+                              st31.ipm_options, g31[None], launches31,
+                              z0=g31)
+        newton["walker_study_" + key] = chk
+
+    # the K1 checks of phases 10, 13, 15, 16, 17, 19, 20, 22, 27, 30 and 31
+    # join the kernels line by shape
     for key, chk in newton.items():
         if not kernels:  # phase 8 not run: these shapes lead
             kernels = [{"name": kern, "route": "cuda",

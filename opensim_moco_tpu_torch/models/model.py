@@ -1276,6 +1276,17 @@ class Model:
                 else torch.zeros_like(ft[..., i]))
         return torch.stack(torch.broadcast_tensors(*cols), -1)
 
+    def state_derivatives(self, p, t, q, u, z, x, lam,
+                          implicit_aux_derivs=None, udot=None):
+        """ydot = [u, udot, zdot] (..., ny) (JAX ``models/model.py:1251``);
+        ``udot`` given skips the forward dynamics. Without
+        ``implicit_aux_derivs`` an implicit tendon's entry is 0, as in
+        :meth:`aux_dynamics`."""
+        if udot is None:
+            udot = self.multibody_explicit(p, t, q, u, z, x, lam)
+        zdot = self.aux_dynamics(p, t, q, u, z, x, implicit_aux_derivs)
+        return torch.cat([u, udot, zdot], -1)
+
     def implicit_aux_residuals(self, p, t, q, u, z, x, implicit_aux_derivs,
                                path_kin=None):
         """Equilibrium residuals of implicit-tendon muscles, normalized by

@@ -7,6 +7,8 @@ from .goals import (AccelerationTrackingGoal, AngularVelocityTrackingGoal,
                     MarkerTrackingGoal, OrientationTrackingGoal, OutputGoal,
                     PeriodicityGoal, StateTrackingGoal, SumSquaredStateGoal,
                     TranslationTrackingGoal)
+from .path_constraints import (control_bound_constraint,
+                               frame_distance_constraint)
 from .problem import (ParameterSpec, PathConstraintSpec, Problem,
                       ProblemRep, VariableInfo)
 from .study import Solution, Study
@@ -19,6 +21,7 @@ __all__ = [
     "MarkerFinalGoal", "ControlTrackingGoal", "TranslationTrackingGoal",
     "OrientationTrackingGoal", "AngularVelocityTrackingGoal", "OutputGoal",
     "AccelerationTrackingGoal", "JointReactionGoal",
+    "control_bound_constraint", "frame_distance_constraint",
     "ParameterSpec", "PathConstraintSpec", "Problem", "ProblemRep",
     "VariableInfo", "Solution", "Study",
 ]

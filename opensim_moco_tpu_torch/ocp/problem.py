@@ -13,6 +13,7 @@ and returns (..., P, k) (or (..., P) for one component).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Callable
 
 import numpy as np
@@ -76,11 +77,15 @@ class Problem:
         self.time_initial = (0.0, 0.0)
         self.time_final = (1.0, 1.0)
         self.state_infos: dict[str, VariableInfo] = {}
+        self.state_info_patterns: list[tuple[str, VariableInfo]] = []
         self.control_infos: dict[str, VariableInfo] = {}
         self.goals: list[Goal] = []
         self.path_constraints: list[PathConstraintSpec] = []
         self.parameters: list[ParameterSpec] = []
         self.multiplier_bounds = (-1000.0, 1000.0)
+
+    def set_model(self, model: Model):
+        self.model = model
 
     def set_time_bounds(self, initial, final):
         self.time_initial = _as_bounds(initial)
@@ -88,6 +93,15 @@ class Problem:
 
     def set_state_info(self, name, bounds=None, initial=None, final=None):
         self.state_infos[name] = _info(bounds, initial, final)
+
+    def set_state_info_pattern(self, pattern, bounds=None, initial=None,
+                               final=None):
+        """Bounds for every state whose name ``re.fullmatch``es
+        ``pattern`` (setStateInfoPattern; JAX ``ocp/problem.py:94``):
+        explicit infos take precedence, and patterns are tried in the order
+        they were set."""
+        self.state_info_patterns.append((pattern,
+                                         _info(bounds, initial, final)))
 
     def set_control_info(self, name, bounds=None, initial=None, final=None):
         self.control_infos[name] = _info(bounds, initial, final)
@@ -139,8 +153,17 @@ class ProblemRep:
         self.y0_lo, self.y0_hi = dlo.copy(), dhi.copy()
         self.yf_lo, self.yf_hi = dlo.copy(), dhi.copy()
 
-        for i, name in enumerate(self.state_names):
+        def resolve(name):
             info = problem.state_infos.get(name)
+            if info is not None:
+                return info
+            for pat, pinfo in problem.state_info_patterns:
+                if re.fullmatch(pat, name):
+                    return pinfo
+            return None
+
+        for i, name in enumerate(self.state_names):
+            info = resolve(name)
             if info is None:
                 continue
             self.y_lo[i], self.y_hi[i] = info.bounds

@@ -819,10 +819,11 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
         """(B,) lanes still iterating."""
         return (~carry.converged) & (carry.it < opt.max_iter)
 
-    def body_fn(carry: Carry) -> Carry:
-        """One iteration for the live lanes; finished lanes come back
-        unchanged."""
-        live = cond_fn(carry)
+    def body_fn(carry: Carry, live=None) -> Carry:
+        """One iteration for the live lanes (``live`` (B,), by default
+        :func:`cond_fn`); the other lanes come back unchanged."""
+        if live is None:
+            live = cond_fn(carry)
         new = _step(carry)
         return Carry(*[_where(live, a, b) for a, b in zip(new, carry)])
 
@@ -839,20 +840,49 @@ def make_kernel(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
     return init_fn, body_fn, cond_fn, finalize_fn
 
 
-def make_solver(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
-                *, device="cuda", dtype=torch.float64) -> Callable:
-    """``solve(Z0) -> IPMResult`` for a batch of starting points Z0 (B, n)
-    (numpy or tensor), on ``device`` (the card unless the caller asks for
-    the CPU). TF32 is off inside the solve."""
+def make_chunked_solver(nlp: NLP, options: IPMOptions = IPMOptions(),
+                        scale_z0=None, *, device="cuda",
+                        dtype=torch.float64):
+    """``(init_fn, run_chunk, finalize_fn)`` on ``device`` (the card unless
+    the caller asks for the CPU), for solves taken in chunks (JAX
+    ``ipm.py:1030``): ``run_chunk(carry, iter_limit)`` advances every live
+    lane until it converges, reaches ``max_iter`` or reaches
+    ``carry.it >= iter_limit``. The chunks take the same steps as one
+    :func:`make_solver` solve; between them the caller may write the
+    iterate out or stop (the reference's output_interval snapshots and
+    FileDeletionThrower). TF32 is off in each of the three."""
     dev = resolve_device(device)
     init_fn, body_fn, cond_fn, finalize_fn = make_kernel(
         nlp, options, scale_z0, device=dev, dtype=dtype)
 
-    def solve(Z0) -> IPMResult:
+    def init(Z0) -> Carry:
         with full_precision(dev):
-            carry = init_fn(Z0)
-            while bool(cond_fn(carry).any()):
-                carry = body_fn(carry)
+            return init_fn(Z0)
+
+    def run_chunk(carry: Carry, iter_limit) -> Carry:
+        with full_precision(dev):
+            while True:
+                live = cond_fn(carry) & (carry.it < iter_limit)
+                if not bool(live.any()):
+                    return carry
+                carry = body_fn(carry, live)
+
+    def finalize(carry: Carry) -> IPMResult:
+        with full_precision(dev):
             return finalize_fn(carry)
+
+    return init, run_chunk, finalize
+
+
+def make_solver(nlp: NLP, options: IPMOptions = IPMOptions(), scale_z0=None,
+                *, device="cuda", dtype=torch.float64) -> Callable:
+    """``solve(Z0) -> IPMResult`` for a batch of starting points Z0 (B, n)
+    (numpy or tensor), on ``device`` (the card unless the caller asks for
+    the CPU): one chunk of :func:`make_chunked_solver` to ``max_iter``."""
+    init_fn, run_chunk, finalize_fn = make_chunked_solver(
+        nlp, options, scale_z0, device=device, dtype=dtype)
+
+    def solve(Z0) -> IPMResult:
+        return finalize_fn(run_chunk(init_fn(Z0), options.max_iter))
 
     return solve

@@ -503,25 +503,34 @@ class Transcription:
         return self._per_lane(constraints)
 
     # ------------------------------------------------------------ objective
+    def _cost_terms(self, z, C):
+        """The cost goals' weighted terms at ``z`` (..., n), in goal order,
+        with the quadrature weights (..., G), the multipliers and the
+        derivative variables, from the device constants ``C``."""
+        rep = self.rep
+        t0, tf, Y, X, L, D, _, _, _, theta = self.unpack(z)
+        p = rep.apply_parameters(theta, C["p"])
+        dt = (tf - t0).unsqueeze(-1)
+        ts = t0.unsqueeze(-1) + dt * C["taus"]
+        w = dt * C["quad_w"]
+        initial, final = self._endpoints(ts, Y, X, L, D)
+        terms = []
+        for g in self.cost_goals:
+            S = (w * g.integrand(rep, ts, Y, X, L, p)).sum(-1)
+            terms.append(g.weight * g.value(rep, initial, final, S, p))
+        return terms, w, L, D
+
     def objective_fn(self, device="cuda", dtype=torch.float64):
         """``f(z)``: weighted cost goals plus the optional multiplier and
         implicit-derivative penalties."""
-        rep = self.rep
         C = self._constants(device, dtype)
         opt = self.opt
 
         def objective(z):
-            t0, tf, Y, X, L, D, Gm, pcs, ecs, theta = self.unpack(z)
-            p = rep.apply_parameters(theta, C["p"])
-            dt = (tf - t0).unsqueeze(-1)
-            ts = t0.unsqueeze(-1) + dt * C["taus"]
-            w = dt * C["quad_w"]
-            initial, final = self._endpoints(ts, Y, X, L, D)
-            total = torch.zeros_like(t0)
-            for g in self.cost_goals:
-                integrand = g.integrand(rep, ts, Y, X, L, p)
-                S = (w * integrand).sum(-1)
-                total = total + g.weight * g.value(rep, initial, final, S, p)
+            terms, w, L, D = self._cost_terms(z, C)
+            total = torch.zeros_like(z[..., 0])
+            for term in terms:
+                total = total + term
             if opt.minimize_lagrange_multipliers and self.nlam:
                 total = total + opt.lagrange_multiplier_weight * \
                     (w * (L * L).sum(-1)).sum(-1)
@@ -567,6 +576,36 @@ class Transcription:
         for g in self.ec_goals:
             groups.append((f"endpoint:{g.name}", g.num_outputs))
         return groups
+
+    def objective_breakdown(self, z, device="cuda", dtype=torch.float64):
+        """{goal name: weighted cost term} of the cost goals at the flat
+        iterate ``z`` (n,), evaluated on ``device`` (the card unless the
+        caller asks for the CPU; printObjectiveBreakdown, JAX
+        ``transcription.py:566``). The multiplier and implicit-derivative
+        penalties are not goals and are left out."""
+        dev = resolve_device(device)
+        terms = self._cost_terms(torch.as_tensor(
+            np.asarray(z), dtype=dtype, device=dev),
+            self._constants(dev, dtype))[0]
+        return {g.name: float(v) for g, v in zip(self.cost_goals, terms)}
+
+    def constraint_report(self, z, device="cuda", dtype=torch.float64):
+        """{constraint group: max |c|} at the flat iterate ``z`` (n,), the
+        raw residuals of ``constraints_fn`` on ``device`` (the card unless
+        the caller asks for the CPU; JAX ``transcription.py:591``), by the
+        groups of :meth:`constraint_group_info`."""
+        dev = resolve_device(device)
+        c = self.constraints_fn(dev, dtype)(torch.as_tensor(
+            np.asarray(z), dtype=dtype, device=dev)).cpu().numpy()
+        report = {}
+        off = 0
+        for name, size in self.constraint_group_info():
+            seg = c[off:off + size]
+            report[name] = float(np.max(np.abs(seg))) if size else 0.0
+            off += size
+        assert off == len(c), (off, len(c), "constraint group info out of "
+                               "sync with constraints_fn")
+        return report
 
     # ------------------------------------------------------- KKT structure
     def kkt_structure(self):

@@ -2,11 +2,12 @@
 
 Counterpart of the table part of ``opensim_moco_tpu.utils.tables``
 (``StoTable`` ``:55``, ``read_sto`` ``:72``, ``write_sto`` ``:117``,
+``trajectory_to_sto`` ``:135``, ``sto_to_trajectory`` ``:183``,
 ``TrcTable`` ``:213``, ``read_trc`` ``:230``) in pure Python and numpy:
 a .sto has header ``key=value`` lines up to ``endheader``, then a
 whitespace-separated table whose first column is time; a .trc has three
 header lines, a marker-name row, a component row and tab-separated
-frames. The trajectory writers are not ported yet (ROADMAP.md, queue 1).
+frames.
 """
 
 from __future__ import annotations
@@ -82,6 +83,91 @@ def write_sto(path, table: StoTable, name="table") -> None:
         for i, t in enumerate(table.time):
             row = "\t".join(f"{float(x):.17g}" for x in table.data[i])
             fh.write(f"{float(t):.17g}\t{row}\n")
+
+
+def trajectory_to_sto(traj, path):
+    """Write a ``Trajectory``/``Solution`` in the reference's solution
+    layout (MocoTrajectory::write): the state, control, multiplier and
+    derivative columns in that order, and, for a ``Solution``, the solver's
+    statistics in the header. Multipliers are negated on write (and again
+    on read by :func:`sto_to_trajectory`): the reference applies constraint
+    forces from -lambda where this package's residual uses +G^T lambda, so
+    the files agree with the reference's."""
+    cols = []
+    names = []
+    for group_names, data in [
+            (traj.state_names, traj.states),
+            (traj.control_names, traj.controls),
+            (traj.multiplier_names, traj.multipliers),
+            (traj.derivative_names, traj.derivatives)]:
+        if data is None or not len(group_names):
+            continue
+        names += list(group_names)
+        data = np.asarray(data)
+        if group_names is traj.multiplier_names:
+            data = -data
+        cols.append(data)
+    data = np.concatenate(cols, axis=1) if cols else np.zeros(
+        (len(traj.time), 0))
+    meta = {"name": "MocoSolution", "DataType": "double",
+            "inDegrees": "no",
+            "num_states": str(len(traj.state_names)),
+            "num_controls": str(len(traj.control_names)),
+            "num_multipliers": str(len(traj.multiplier_names)),
+            "num_derivatives": str(len(traj.derivative_names)),
+            "num_parameters": str(len(traj.parameter_names))}
+    success = getattr(traj, "success", None)
+    if success is not None:
+        meta["success"] = "true" if success else "false"
+        meta["objective"] = \
+            f"{float(getattr(traj, 'objective', float('nan'))):.17g}"
+        meta["num_iterations"] = str(getattr(traj, "num_iterations", -1))
+        meta["solver_duration"] = \
+            f"{float(getattr(traj, 'solver_duration', float('nan'))):.17g}"
+        meta["status"] = str(getattr(traj, "status", ""))
+    write_sto(path, StoTable(traj.time, names, data, meta))
+
+
+def sto_to_trajectory(path):
+    """A solution or trajectory .sto as a ``Solution``. Columns are sorted
+    by their names: ``.../value``, ``.../speed``, ``.../activation`` and
+    ``.../normalized_tendon_force`` are states; ``lambda...`` and
+    ``.../multiplier...`` multipliers (negated, see
+    :func:`trajectory_to_sto`); ``.../accel``, ``...implicitderiv...`` and
+    ``..._derivative`` derivatives; every other column a control. The
+    header gives ``success``, ``objective`` and ``status``."""
+    from .trajectory import Solution
+
+    t = read_sto(path)
+    state_names, controls_names, mult_names, deriv_names = [], [], [], []
+    for n in t.column_names:
+        if (n.endswith("/value") or n.endswith("/speed") or
+                n.endswith("/activation") or
+                n.endswith("/normalized_tendon_force")):
+            state_names.append(n)
+        elif n.startswith("lambda") or "/multiplier" in n:
+            mult_names.append(n)
+        elif (n.endswith("/accel") or "implicitderiv" in n or
+              n.endswith("_derivative")):
+            deriv_names.append(n)
+        else:
+            controls_names.append(n)
+
+    def pick(ns):
+        return (np.stack([t.column(n) for n in ns], axis=1)
+                if ns else np.zeros((len(t.time), 0)))
+
+    meta = t.metadata
+    return Solution(
+        time=t.time,
+        state_names=state_names, states=pick(state_names),
+        control_names=controls_names, controls=pick(controls_names),
+        multiplier_names=mult_names, multipliers=-pick(mult_names),
+        derivative_names=deriv_names, derivatives=pick(deriv_names),
+        success=meta.get("success", "true") == "true",
+        objective=float(meta.get("objective", "nan")),
+        status=meta.get("status", ""),
+    )
 
 
 class TrcTable:
